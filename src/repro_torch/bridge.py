@@ -1,0 +1,46 @@
+"""Weights from the JAX reference into the port.
+
+The reference's parameter tree, flattened to ``/``-joined paths as
+``repro.checkpoint.store._flatten`` writes them (``layers/attn/wq``,
+``final_norm/scale``, ``embed``, ...), becomes the port's nested dict of
+tensors with the same paths. The port never imports the store: callers
+flatten the tree themselves.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import spec as pspec
+from repro_torch.models.registry import build_model
+
+
+def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig, device,
+                      dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Port parameters of ``cfg`` from the reference's flattened tree.
+
+    Each weight is kept in the dtype in which the reference uses it: the
+    reference stores everything in f32 and casts the attention and MLP
+    matmul weights and the QKV biases to the activation dtype at use
+    (``p["wq"].astype(dt)``), so those are kept in ``dtype`` (bf16, as the
+    reference's activations; float32 when the model runs in f32). Norm
+    gains stay f32 (``1 + w`` in f32), and ``embed``/``unembed`` stay f32
+    (``lm_logits`` is f32; the embedding is gathered, then cast).
+
+    Raises KeyError if a path is missing or extra, ValueError on a shape
+    that is not the config's.
+    """
+    specs = pspec.flatten(build_model(cfg, dtype).param_specs())
+    missing, extra = specs.keys() - flat.keys(), flat.keys() - specs.keys()
+    if missing or extra:
+        raise KeyError(f"{cfg.name}: missing {sorted(missing)}, "
+                       f"unexpected {sorted(extra)}")
+    out = {}
+    for path, spec in specs.items():
+        arr = np.asarray(flat[path])
+        if arr.shape != spec.shape:
+            raise ValueError(f"{path}: shape {arr.shape}, config wants {spec.shape}")
+        out[path] = torch.from_numpy(np.array(arr, np.float32)).to(
+            device=device, dtype=spec.dtype)
+    return pspec.unflatten(out)

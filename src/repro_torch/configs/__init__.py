@@ -1,0 +1,29 @@
+"""Config registry of the port: ``--arch <id>`` resolution.
+
+A copy of ``repro.configs`` restricted to the dense decoder-only configs
+that the port serves; the other families join as their models are ported
+(see ROADMAP.md).
+"""
+from __future__ import annotations
+
+import importlib
+
+_ARCH_MODULES = {
+    "qwen2.5-3b": "repro_torch.configs.qwen25_3b",
+    "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1p8b",
+    "gemma-2b": "repro_torch.configs.gemma_2b",
+}
+
+ARCH_IDS = tuple(_ARCH_MODULES)
+
+
+def get_config(arch_id: str):
+    if arch_id not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")
+    return importlib.import_module(_ARCH_MODULES[arch_id]).CONFIG
+
+
+def get_smoke_config(arch_id: str):
+    if arch_id not in _ARCH_MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCH_IDS)}")
+    return importlib.import_module(_ARCH_MODULES[arch_id]).smoke_config()

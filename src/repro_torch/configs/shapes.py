@@ -1,0 +1,29 @@
+"""Assigned input shapes (public pool).
+
+Decode shapes lower ``serve_step`` (one new token against a KV/SSM cache of
+``seq_len``); train/prefill lower ``train_step`` / ``prefill``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+Kind = Literal["train", "prefill", "decode"]
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Kind
+
+
+TRAIN_4K = InputShape("train_4k", 4_096, 256, "train")
+PREFILL_32K = InputShape("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = InputShape("decode_32k", 32_768, 128, "decode")
+LONG_500K = InputShape("long_500k", 524_288, 1, "decode")
+
+SHAPES: dict[str, InputShape] = {
+    s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+}

@@ -1,0 +1,169 @@
+"""Shared neural-net layers (torch twin of ``repro.models.layers``).
+
+bf16 compute / f32 statistics, as in the reference. The two Pallas kernels
+of the reference are wired in where its docstrings say they belong:
+``rmsnorm`` goes to ``kernels.ops.rmsnorm`` and ``chunked_attention`` hands
+the whole attention to ``kernels.ops.swa_attention``; on CUDA tensors those
+launch the hand-written kernels, on CPU tensors the plain versions run.
+Activations keep the reference's ``[B, S, H, D]`` layout.
+"""
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+NEG_INF = -1e30
+
+
+class Sharder:
+    """The reference's sharding-hint hook. The port has no mesh yet, so it
+    is the identity (sharding is a later slice, see ROADMAP.md)."""
+
+    def __call__(self, x, *axes):
+        return x
+
+
+NO_SHARD = Sharder()
+
+
+# ---------------------------------------------------------------- norms ----
+def rmsnorm(x, w, eps=1e-6):
+    return ops.rmsnorm(x, w, eps=eps)
+
+
+def layernorm(x, w, b, eps=1e-5):
+    dt = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(dt)
+
+
+def apply_norm(cfg, x, p, prefix=""):
+    if cfg.norm == "layernorm":
+        return layernorm(x, p[prefix + "scale"], p[prefix + "bias"])
+    return rmsnorm(x, p[prefix + "scale"])
+
+
+# ----------------------------------------------------------------- rope ----
+def rope_freqs(d_half: int, theta: float):
+    return 1.0 / (theta ** (np.arange(0, d_half, dtype=np.float32) / d_half))
+
+
+@functools.lru_cache(maxsize=16)
+def _rope_freqs_on(d_half: int, theta: float, device: torch.device):
+    # read-only, kept per device so that a decode step copies nothing
+    return torch.from_numpy(rope_freqs(d_half, theta)).to(device)
+
+
+def apply_rope(x, positions, theta: float):
+    """Rotate ``x [B, S, H, D]`` by integer ``positions [B, S]``.
+
+    M-RoPE (Qwen2-VL's ``sections``) comes with the VLM slice."""
+    d_half = x.shape[-1] // 2
+    freqs = _rope_freqs_on(d_half, theta, x.device)
+    ang = positions[..., None].float() * freqs                # [B,S,d_half]
+    cos = torch.cos(ang)[:, :, None, :]                       # [B,S,1,d_half]
+    sin = torch.sin(ang)[:, :, None, :]
+    xf1, xf2 = x[..., :d_half].float(), x[..., d_half:].float()
+    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------ attention ----
+def repeat_kv(k, n_rep: int):
+    if n_rep == 1:
+        return k
+    b, s, h, d = k.shape
+    return k[:, :, :, None, :].expand(b, s, h, n_rep, d).reshape(b, s, h * n_rep, d)
+
+
+def chunked_attention(q, k, v, *, causal: bool = True,
+                      window: int | None = None, q_offset: int = 0):
+    """softmax(QK^T/sqrt(d)) V over the whole sequence, through
+    ``ops.swa_attention`` (flash-style: never an [S, S] tensor on the GPU).
+
+    q, k, v: [B, S, H, D] (KV already GQA-repeated). Only self-attention
+    from position 0 is ported: ``sq == sk`` and ``q_offset == 0``.
+    ``window``: key j visible to query i iff i - window < j <= i.
+    Unlike the reference's XLA path, the softmax weights are not rounded
+    to bf16 before the product with V (the TPU kernel does not round them
+    either); the difference is within bf16 tolerance.
+    """
+    b, sq, h, d = q.shape
+    if k.shape[1] != sq or q_offset != 0:
+        raise NotImplementedError(
+            "chunked_attention: only sq == sk and q_offset == 0 are ported "
+            "(cross-attention waits for the whisper slice, see ROADMAP.md)")
+
+    def to_bh(t):  # [B, S, H, D] -> [B*H, S, D]
+        return t.permute(0, 2, 1, 3).reshape(b * h, sq, d)
+
+    out = ops.swa_attention(to_bh(q), to_bh(k), to_bh(v), causal=causal,
+                            window=window)
+    return out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window: int | None = None,
+                     repeated: bool = False):
+    """One-token attention against a cache (plain torch: the reference has
+    no kernel here).
+
+    q: [B, 1, H, D]; caches: [B, S, Hkv, D] (GQA-repeated already iff
+    ``repeated``); pos: [B] int — number of valid tokens already in the
+    cache (the new token occupies slot ``pos``). Scores and the product
+    with V accumulate in f32; the softmax weights are rounded to q's dtype
+    in between, as in the reference.
+    """
+    b, s, hkv, d = k_cache.shape
+    h = q.shape[2]
+    if repeated:
+        k, v = k_cache, v_cache
+    else:
+        k = repeat_kv(k_cache, h // hkv)
+        v = repeat_kv(v_cache, h // hkv)
+    scale = 1.0 / np.sqrt(d)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    kpos = torch.arange(s, device=q.device)[None, :]             # [1,S]
+    valid = kpos <= pos[:, None]
+    if window is not None:
+        valid &= kpos > (pos[:, None] - window)
+    scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p.float(), v.float()).to(q.dtype)
+
+
+# ---------------------------------------------------------------- mlps -----
+def mlp(cfg, p, x):
+    """Gated MLP (silu or geglu) from a layer param dict."""
+    if cfg.activation == "silu":
+        act = F.silu
+    elif cfg.activation == "geglu":
+        def act(t):  # jax.nn.gelu defaults to the tanh approximation
+            return F.gelu(t, approximate="tanh")
+    else:
+        raise NotImplementedError(
+            f"activation {cfg.activation!r} comes with the whisper slice "
+            "(see ROADMAP.md)")
+    g = act(torch.einsum("bsd,df->bsf", x, p["wi_gate"].to(x.dtype)))
+    u = torch.einsum("bsd,df->bsf", x, p["wi_up"].to(x.dtype))
+    return torch.einsum("bsf,fd->bsd", g * u, p["wo"].to(x.dtype))
+
+
+# ----------------------------------------------------------- embeddings ----
+def embed_tokens(embedding, tokens, scale: float | None = None):
+    x = embedding[tokens.long()].to(torch.bfloat16)
+    if scale is not None:
+        x = x * torch.tensor(scale, dtype=x.dtype)  # scale rounded to bf16 first
+    return x
+
+
+def lm_logits(x, out_embedding):
+    """x [B,S,D] @ [V,D]^T -> [B,S,V] in f32."""
+    return torch.einsum("bsd,vd->bsv", x.float(), out_embedding.float())

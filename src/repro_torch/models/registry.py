@@ -1,0 +1,33 @@
+"""Model factory: config -> model object (torch twin of ``repro.models.registry``).
+
+Only the decoder-only transformer family is ported; the other families
+come in later slices (see ROADMAP.md).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import TransformerModel
+
+
+def build_model(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16):
+    """``dtype``: the compute dtype of activations and matmul weights."""
+    if cfg.family in ("ssm", "hybrid", "audio"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet "
+            "(see ROADMAP.md)")
+    return TransformerModel(cfg, dtype)
+
+
+def decode_window(cfg: ModelConfig, seq_len: int) -> int | None:
+    """Effective attention window for a given context length.
+
+    Native SWA archs always use their window; otherwise full attention up to
+    128k and the sliding-window long-context variant beyond.
+    """
+    if cfg.sliding_window:
+        return cfg.sliding_window
+    if seq_len > 131_072:
+        return cfg.long_context_window
+    return None

@@ -1,0 +1,89 @@
+"""Parameter specification trees (torch twin of ``repro.models.spec``).
+
+Models declare their parameters as nested dicts of :class:`TensorSpec`.
+Real tensors are drawn from an explicit ``torch.Generator``; the draws do
+not reproduce ``jax.random`` (tests bridge the reference's weights in
+through ``repro_torch.bridge`` instead).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """Declarative description of one parameter tensor."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]  # logical axis name per dim (or None)
+    dtype: torch.dtype = torch.float32
+    init: str = "fan_in"  # fan_in | normal | zeros | ones | embed
+    scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(
+                f"shape {self.shape} and axes {self.axes} rank mismatch")
+
+
+def flatten(tree: dict, prefix: str = "") -> dict[str, object]:
+    """Leaves of a nested dict keyed by ``/``-joined paths, in the order
+    ``repro.checkpoint.store._flatten`` writes them (sorted keys)."""
+    flat = {}
+    for k in sorted(tree):
+        v = tree[k]
+        path = f"{prefix}{k}"
+        if isinstance(v, dict):
+            flat.update(flatten(v, path + "/"))
+        else:
+            flat[path] = v
+    return flat
+
+
+def unflatten(flat: dict[str, object]) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def n_params(tree: dict) -> int:
+    return sum(math.prod(s.shape) for s in flatten(tree).values())
+
+
+def _init_one(gen: torch.Generator, s: TensorSpec, device) -> torch.Tensor:
+    if s.init == "zeros":
+        return torch.zeros(s.shape, dtype=s.dtype, device=device)
+    if s.init == "ones":
+        return torch.ones(s.shape, dtype=s.dtype, device=device)
+    if s.init == "embed":
+        std = s.scale / math.sqrt(s.shape[-1])
+    elif s.init == "normal":
+        std = s.scale
+    elif s.init == "fan_in":
+        # fan-in = product of all dims except the last output dim; for
+        # stacked-layer params ignore the leading "layers" dim.
+        dims = list(s.shape)
+        fan_dims = dims[1:-1] if s.axes and s.axes[0] == "layers" else dims[:-1]
+        fan_in = max(1, int(np.prod(fan_dims)) if fan_dims else dims[-1])
+        std = s.scale / math.sqrt(fan_in)
+    else:
+        raise ValueError(f"unknown init {s.init!r}")
+    x = torch.randn(s.shape, generator=gen, device=device, dtype=torch.float32)
+    return (x * std).to(s.dtype)
+
+
+def init_params(generator: torch.Generator, tree: dict, device) -> dict:
+    """Materialize real parameters from a spec tree, one draw per leaf in
+    path order. ``generator`` must live on ``device``."""
+    flat = flatten(tree)
+    return unflatten({p: _init_one(generator, s, device)
+                      for p, s in flat.items()})

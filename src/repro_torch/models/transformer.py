@@ -1,0 +1,221 @@
+"""Decoder-only transformer, dense GQA path (torch twin of
+``repro.models.transformer``): qwen2.5-*, gemma and h2o-danube.
+
+Parameters are the reference's tree as nested dicts of tensors, with the
+per-layer weights stacked along a leading ``[n_layers]`` dim; the layer
+loop is a Python loop over that dim. MoE and the vision front end come in
+later slices (see ROADMAP.md).
+"""
+from __future__ import annotations
+
+import functools
+import math
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import InputShape
+from repro_torch.models import layers as L
+from repro_torch.models.spec import TensorSpec as TS, init_params
+
+
+def _norm_specs(cfg, shape, axes):
+    if cfg.norm == "layernorm":
+        return {"scale": TS(shape, axes, init="ones"),
+                "bias": TS(shape, axes, init="zeros")}
+    return {"scale": TS(shape, axes, init="zeros")}
+
+
+def attn_specs(cfg: ModelConfig, n: int, dtype: torch.dtype) -> dict:
+    Lx, D, H, Hk, Dh = (n, cfg.d_model, cfg.pad_heads_to or cfg.n_heads,
+                        cfg.n_kv_heads, cfg.d_head)
+    s: dict = {
+        "wq": TS((Lx, D, H, Dh), ("layers", "embed", "heads", "head_dim"), dtype),
+        "wk": TS((Lx, D, Hk, Dh), ("layers", "embed", "kv_heads", "head_dim"), dtype),
+        "wv": TS((Lx, D, Hk, Dh), ("layers", "embed", "kv_heads", "head_dim"), dtype),
+        "wo": TS((Lx, H, Dh, D), ("layers", "heads", "head_dim", "embed"), dtype),
+    }
+    if cfg.qkv_bias or cfg.norm == "layernorm":
+        s["bq"] = TS((Lx, H, Dh), ("layers", "heads", "head_dim"), dtype,
+                     init="zeros")
+        s["bk"] = TS((Lx, Hk, Dh), ("layers", "kv_heads", "head_dim"), dtype,
+                     init="zeros")
+        s["bv"] = TS((Lx, Hk, Dh), ("layers", "kv_heads", "head_dim"), dtype,
+                     init="zeros")
+    return s
+
+
+def mlp_specs(cfg: ModelConfig, n: int, dtype: torch.dtype) -> dict:
+    Lx, D, F = n, cfg.d_model, cfg.d_ff
+    return {"wi_gate": TS((Lx, D, F), ("layers", "embed", "mlp"), dtype),
+            "wi_up": TS((Lx, D, F), ("layers", "embed", "mlp"), dtype),
+            "wo": TS((Lx, F, D), ("layers", "mlp", "embed"), dtype)}
+
+
+@functools.lru_cache(maxsize=16)
+def _head_map(n_heads: int, n_padded: int, n_kv_heads: int,
+              device: torch.device) -> torch.Tensor:
+    """KV head of each (possibly padded) Q head, as the reference maps it;
+    read-only, kept per device so that a decode step copies nothing."""
+    return torch.tensor([min(h, n_heads - 1) * n_kv_heads // n_heads
+                         for h in range(n_padded)], dtype=torch.long,
+                        device=device)
+
+
+def attention(cfg: ModelConfig, p, x, positions, sh, *,
+              window: int | None, cache=None, pos=None):
+    """Self-attention sub-layer.
+
+    cache: (k_cache, v_cache) [B, S, Hkv, Dh] for decode, written in place
+    at slot ``pos`` [B] (the reference returns new caches instead).
+    """
+    dt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if cfg.rope_theta:
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
+    q = sh(q, "batch", "seq", "heads", "head_dim")
+    # Padded heads (pad_heads_to) keep the real heads' q->kv mapping through
+    # an explicit gather and are hard-masked to zero output.
+    H_real, H_pad = cfg.n_heads, (cfg.pad_heads_to or cfg.n_heads)
+    head_map = _head_map(H_real, H_pad, cfg.n_kv_heads, x.device)
+    if cache is not None:
+        k_cache, v_cache = cache
+        bidx = torch.arange(k.shape[0], device=x.device)
+        k_cache[bidx, pos] = k[:, 0].to(k_cache.dtype)
+        v_cache[bidx, pos] = v[:, 0].to(v_cache.dtype)
+        attn = L.decode_attention(
+            q, k_cache.to(dt).index_select(2, head_map),
+            v_cache.to(dt).index_select(2, head_map),
+            pos, window=window, repeated=True)
+    else:
+        attn = L.chunked_attention(q, k.index_select(2, head_map),
+                                   v.index_select(2, head_map),
+                                   causal=True, window=window)
+    if H_pad != H_real:
+        mask = (torch.arange(H_pad, device=x.device) < H_real).to(dt)
+        attn = attn * mask[None, None, :, None]
+    attn = sh(attn, "batch", "seq", "heads", "head_dim")
+    return torch.einsum("bshk,hkd->bsd", attn, p["wo"].to(dt))
+
+
+def _layer_params(tree: dict, i: int) -> dict:
+    return {k: (_layer_params(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
+class TransformerModel:
+    """Dense decoder-only LM.
+
+    ``dtype`` is the compute dtype at which the reference uses its matmul
+    weights and biases (bf16); they are declared and kept in it, so no step
+    casts them again. Norm gains and the embedding tables stay f32.
+    """
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16):
+        if cfg.is_moe:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE is not ported yet (see ROADMAP.md)")
+        if cfg.frontend is not None or cfg.mrope:
+            raise NotImplementedError(
+                f"{cfg.name}: the vision front end and M-RoPE are not ported "
+                "yet (see ROADMAP.md)")
+        self.cfg = cfg
+        self.dtype = dtype
+
+    # ------------------------------------------------------------ specs ----
+    def param_specs(self) -> dict:
+        cfg = self.cfg
+        n, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
+        layer = {"ln1": _norm_specs(cfg, (n, D), ("layers", "embed")),
+                 "attn": attn_specs(cfg, n, self.dtype),
+                 "ln2": _norm_specs(cfg, (n, D), ("layers", "embed")),
+                 "mlp": mlp_specs(cfg, n, self.dtype)}
+        p = {"embed": TS((V, D), ("vocab", "embed"), init="embed"),
+             "final_norm": _norm_specs(cfg, (D,), ("embed",)),
+             "layers": layer}
+        if not cfg.tie_embeddings:
+            p["unembed"] = TS((V, D), ("vocab", "embed"), init="embed")
+        return p
+
+    def init(self, generator: torch.Generator, device) -> dict:
+        return init_params(generator, self.param_specs(), device)
+
+    # --------------------------------------------------------- positions ---
+    @staticmethod
+    def _positions(batch_size: int, seq_len: int, device):
+        pos = torch.arange(seq_len, dtype=torch.int32, device=device)[None, :]
+        return pos.expand(batch_size, seq_len)
+
+    # ----------------------------------------------------------- embed -----
+    def _embed(self, params, batch):
+        cfg = self.cfg
+        scale = math.sqrt(cfg.d_model) if cfg.name.startswith("gemma") else None
+        return L.embed_tokens(params["embed"], batch["tokens"], scale)
+
+    def _unembed(self, params):
+        return params["embed"] if self.cfg.tie_embeddings else params["unembed"]
+
+    # ---------------------------------------------------------- forward ----
+    def _layer(self, params_i, x, positions, sh, window, cache_i=None,
+               pos=None):
+        cfg = self.cfg
+        h = L.apply_norm(cfg, x, params_i["ln1"])
+        x = x + attention(cfg, params_i["attn"], h, positions, sh,
+                          window=window, cache=cache_i, pos=pos)
+        h = L.apply_norm(cfg, x, params_i["ln2"])
+        return x + L.mlp(cfg, params_i["mlp"], h)
+
+    def forward(self, params, batch, sh=L.NO_SHARD, *, window=None):
+        """Teacher-forced logits over the whole sequence. Returns (logits, aux);
+        aux is 0.0 on the dense path."""
+        cfg = self.cfg
+        x = sh(self._embed(params, batch), "batch", "seq", "embed")
+        positions = self._positions(*batch["tokens"].shape, x.device)
+        window = window if window is not None else cfg.sliding_window
+        for i in range(cfg.n_layers):
+            x = self._layer(_layer_params(params["layers"], i), x,
+                            positions, sh, window)
+        x = L.apply_norm(cfg, x, params["final_norm"])
+        logits = L.lm_logits(x, self._unembed(params))
+        return sh(logits, "batch", "seq", "vocab"), 0.0
+
+    # ------------------------------------------------------------ serve ----
+    def cache_specs(self, shape: InputShape, dtype=torch.bfloat16) -> dict:
+        cfg = self.cfg
+        kv = (cfg.n_layers, shape.global_batch, shape.seq_len, cfg.n_kv_heads,
+              cfg.d_head)
+        axes = ("layers", "batch", "cache_seq", "kv_heads", "head_dim")
+        return {"k": TS(kv, axes, dtype=dtype, init="zeros"),
+                "v": TS(kv, axes, dtype=dtype, init="zeros")}
+
+    def prefill(self, params, batch, sh=L.NO_SHARD, *, window=None):
+        """Prefill logits (the forward; the cache is built by stepping the
+        decoder, as in the reference's serve loop)."""
+        logits, _ = self.forward(params, batch, sh, window=window)
+        return logits
+
+    def decode_step(self, params, cache, batch, sh=L.NO_SHARD, *,
+                    window=None):
+        """One-token decode against a cache. batch: tokens [B,1], pos [B].
+
+        The cache's slot ``pos`` is written in place (the reference returns
+        a new cache; here the returned dict is ``cache`` itself)."""
+        cfg = self.cfg
+        x = self._embed(params, batch)
+        pos = batch["pos"].long()
+        positions = pos[:, None]
+        window = window if window is not None else cfg.sliding_window
+        for i in range(cfg.n_layers):
+            x = self._layer(_layer_params(params["layers"], i), x,
+                            positions, sh, window,
+                            cache_i=(cache["k"][i], cache["v"][i]), pos=pos)
+        x = L.apply_norm(cfg, x, params["final_norm"])
+        logits = L.lm_logits(x, self._unembed(params))
+        return logits, cache

@@ -1,0 +1,43 @@
+"""Shared helpers of the port's parity tests (tests/test_torch_*.py): the
+same numpy values handed to both packages, and the f32-activation patch
+of tests/test_decode_consistency.py::test_jamba_decode_exact_in_f32
+applied to both."""
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import repro.models.layers as JL
+import repro_torch.models.layers as TL
+
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def both(a: np.ndarray, dtype: str = "float32"):
+    """The same values as a jax array and a torch tensor of one dtype
+    (both round f32 to bf16 to nearest even)."""
+    jdt, tdt = DTYPES[dtype]
+    return jnp.asarray(a, jdt), torch.from_numpy(np.ascontiguousarray(a)).to(tdt)
+
+
+def as_f32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _jax_embed_f32(embedding, tokens, scale=None):
+    x = jnp.take(embedding, tokens, axis=0).astype(jnp.float32)
+    return x * scale if scale is not None else x
+
+
+def _torch_embed_f32(embedding, tokens, scale=None):
+    x = embedding[tokens.long()].float()
+    return x * scale if scale is not None else x
+
+
+def patch_f32_embeddings(mp) -> None:
+    """Make both packages' ``embed_tokens`` return f32, so every activation
+    downstream is f32 (``mp`` is a pytest MonkeyPatch)."""
+    mp.setattr(JL, "embed_tokens", _jax_embed_f32)
+    mp.setattr(TL, "embed_tokens", _torch_embed_f32)

@@ -1,0 +1,130 @@
+"""The port stands alone: importing every repro_torch module loads neither
+jax nor any module of the JAX package ``repro``; its entry points refuse to
+run without a GPU unless asked for the CPU; and on the CPU no kernel is
+launched."""
+import pytest
+
+pytest.importorskip("torch")  # the CI lane without torch skips the port
+
+import json
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+ROOT = SRC.parent
+
+
+def _port_modules() -> list[str]:
+    import repro_torch
+    names = ["repro_torch"]
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(info.name)
+    return names
+
+
+def _loaded_after(code: str) -> list[str]:
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run(
+        [sys.executable, "-c", code + "\nimport json, sys\n"
+         "print(json.dumps(sorted(sys.modules)))"],
+        env=env, cwd=ROOT, capture_output=True, text=True, check=True)
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _foreign(modules: list[str]) -> list[str]:
+    return [m for m in modules
+            if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+            or m.startswith("jaxlib.") or m == "repro" or m.startswith("repro.")]
+
+
+def test_every_module_imports_without_jax_or_repro():
+    names = _port_modules()
+    assert {"repro_torch.launch.serve", "repro_torch.kernels.swa_attention",
+            "repro_torch.kernels.rmsnorm", "repro_torch.bridge"} <= set(names)
+    loaded = _loaded_after("\n".join(f"import {n}" for n in names))
+    assert "repro_torch" in loaded and "torch" in loaded
+    assert _foreign(loaded) == []
+
+
+def test_chip_smoke_imports_without_jax_or_repro():
+    loaded = _loaded_after(
+        "import importlib.util\n"
+        f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))")
+    assert "repro_torch.launch.serve" in loaded
+    assert _foreign(loaded) == []
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    """No CUDA device: exit non-zero and print no result."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], env=env,
+                         cwd=ROOT, capture_output=True, text=True)
+    assert out.returncode != 0
+    assert out.stdout == ""
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """Copied without the rest of the repo, chip_smoke.py cannot run."""
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((ROOT / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, str(alone)], env=env, cwd=tmp_path,
+                         capture_output=True, text=True)
+    assert out.returncode != 0
+    assert out.stdout == ""
+
+
+def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.engine.steps import make_decode_step, make_prefill
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.registry import build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("qwen2.5-3b")
+    model = build_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve(cfg, batch=1, prompt_len=2, new_tokens=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_prefill(model)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_decode_step(model)
+    make_prefill(model, device="cpu")
+    make_decode_step(model, device="cpu")
+
+
+def test_steps_refuse_params_on_another_device():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.engine.steps import make_prefill
+    from repro_torch.models.registry import build_model
+
+    model = build_model(get_smoke_config("qwen2.5-3b"))
+    params = model.init(torch.Generator().manual_seed(0), "meta")
+    with pytest.raises(ValueError, match="params are on meta"):
+        make_prefill(model, device="cpu")(params, {"tokens": np.zeros((1, 2), np.int32)})
+
+
+def test_no_kernel_launches_on_the_cpu():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.engine.steps import make_prefill
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.registry import build_model
+
+    ops.reset_launch_counts()
+    cfg = get_smoke_config("h2o-danube-1.8b")
+    serve(cfg, batch=2, prompt_len=4, new_tokens=2, device="cpu",
+          generator=torch.Generator().manual_seed(0))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    logits = make_prefill(model, device="cpu")(
+        params, {"tokens": np.zeros((2, 40), np.int32)})
+    assert logits.shape == (2, 40, cfg.vocab_size)
+    assert ops.launch_counts() == {"rmsnorm": 0, "swa_attention": 0}
