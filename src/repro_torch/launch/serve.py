@@ -22,12 +22,14 @@ from repro_torch.models.registry import build_model, decode_window
 
 
 def serve(cfg, *, batch: int, prompt_len: int, new_tokens: int,
-          params=None, device="cuda", generator: torch.Generator | None = None):
+          params=None, device="cuda", generator: torch.Generator | None = None,
+          return_logits: bool = False):
     """Greedy-decode ``new_tokens`` after TokenStream(seed=3) prompts.
 
     params: the port's parameter tree on ``device``, or None for random
     weights drawn from ``generator`` (default: seed 0 on ``device``).
-    Returns (tokens [batch, new_tokens] int32 numpy, seconds).
+    Returns (tokens [batch, new_tokens] int32 numpy, seconds), and with
+    ``return_logits`` also the last decode step's logits [batch, 1, vocab].
     """
     dev = resolve_device(device)
     model = build_model(cfg)
@@ -62,7 +64,8 @@ def serve(cfg, *, batch: int, prompt_len: int, new_tokens: int,
         if len(out_tokens) - 1 >= new_tokens:
             break
     gen = torch.cat(out_tokens[1:], dim=1).cpu().numpy()
-    return gen, time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
+    return (gen, seconds, logits) if return_logits else (gen, seconds)
 
 
 def main(argv=None):

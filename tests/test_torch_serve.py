@@ -48,6 +48,16 @@ def test_serve_random_weights_bf16():
     np.testing.assert_array_equal(a, b)
 
 
+def test_serve_returns_last_step_logits():
+    """return_logits gives the logits the last generated token came from."""
+    cfg = get_smoke_config("gemma-2b")
+    tokens, _, logits = serve(cfg, batch=2, prompt_len=6, new_tokens=3,
+                              device="cpu", return_logits=True)
+    assert logits.shape == (2, 1, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    np.testing.assert_array_equal(logits[:, 0].argmax(-1).numpy(), tokens[:, -1])
+
+
 def test_serve_cli_on_cpu(capsys):
     main(["--arch", "gemma-2b", "--smoke", "--batch", "2", "--prompt-len", "6",
           "--new-tokens", "3", "--device", "cpu"])
