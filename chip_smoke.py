@@ -17,10 +17,21 @@
    73 rmsnorm launches), logits held against the same prefill through the
    plain versions, and against step-by-step decode over the same prompt;
    two faulty-cache controls show that the decode-vs-prefill gate fails
-   when the cache is wrong.
+   when the cache is wrong;
+6. train phase: the elastic trainer on ResNet-110 at its full published
+   size (random weights from a seeded CUDA generator, CifarLike data of
+   CIFAR-10's 50,000 images, 128 images per worker): the paper's Table 2
+   pattern on one card, 20 steps at w = 4, stop, restart at w = 8 with
+   the eq. 7 LR rescale for 10 steps, then a restart at w = 8 for 40
+   more. One fused_sgd_update launch per step, a bit-exact restore,
+   finite and falling loss, and a held-out loss and accuracy better than
+   chance; then the kernel against the plain version on one set of the
+   trained state's gradients, one train step's loss and gradient on the
+   card against the same step in f32 on the CPU, an exact-resume check
+   (5 + 5 steps against 10) and a profile of the train step.
 
-Launch counts are set to 0 just before the serve and the prefill runs and
-read just after. Any failed check raises, and the script exits non-zero.
+Launch counts are set to 0 just before the serve, the prefill and the
+training runs and read just after. Any failed check raises, and the script exits non-zero.
 The last two lines are the kernels' JSON line and the device line. It
 exits non-zero, printing no result, when there is no CUDA device.
 """
@@ -31,9 +42,11 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
@@ -42,15 +55,21 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.checkpoint.store import CheckpointStore  # noqa: E402
+from repro_torch.configs import resnet110  # noqa: E402
 from repro_torch.configs.shapes import InputShape  # noqa: E402
-from repro_torch.data.synthetic import TokenStream  # noqa: E402
-from repro_torch.engine.steps import make_decode_step, make_prefill  # noqa: E402
+from repro_torch.core.elastic import ElasticTrainer  # noqa: E402
+from repro_torch.data.synthetic import CifarLike, TokenStream  # noqa: E402
+from repro_torch.engine.steps import (make_decode_step, make_prefill,  # noqa: E402
+                                      make_train_step, value_and_flat_grad)
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import fused_update as sgd_kernel  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
 from repro_torch.kernels import swa_attention as swa_kernel  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import spec as pspec  # noqa: E402
 from repro_torch.models.registry import build_model, decode_window  # noqa: E402
+from repro_torch.optim import sgd  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -62,7 +81,8 @@ ARCH = "qwen2.5-3b"
 SERVE = dict(batch=4, prompt_len=128, new_tokens=32)
 PREFILL_SHAPE = (2, 1024)
 TOL = {"rmsnorm": {torch.float32: 1e-5, torch.bfloat16: 2e-2},
-       "swa_attention": {torch.float32: 2e-5, torch.bfloat16: 2e-2}}
+       "swa_attention": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
+       "fused_sgd_update": {torch.float32: 1e-5}}
 # tests/test_kernels.py sweeps, plus danube's head dim 80 and a width that
 # is not a multiple of the 16-byte vector.
 SWA_SWEEP = [(2, 256, 64, None, True), (2, 256, 64, 128, True),
@@ -70,6 +90,37 @@ SWA_SWEEP = [(2, 256, 64, None, True), (2, 256, 64, 128, True),
              (1, 130, 32, 64, True), (2, 64, 256, 32, True),
              (2, 200, 80, None, True)]
 RMS_SWEEP = [(4, 128, 512), (1, 7, 64), (300, 1024), (2, 2048), (3, 100)]
+SGD_SWEEP = (7, 65536, 100001)
+# The trainer: Table 2's 4 -> 8 restart at the paper's 128 images per GPU,
+# then a third segment at w = 8 long enough to learn. The reference's
+# ResNet-110 (GroupNorm, no zero-init of the residual branches) starts at
+# loss 5.46; from a base LR of 1e-3 up (4e-3 and more at w = 4) it spikes
+# (to 19-141) and ends near ln 10, the loss of uniform logits. At 3e-4
+# per worker the held-out loss after 70 steps is 1.55 with accuracy 0.49;
+# at the six other LRs of chip_train_lr.py's sweep it stays at or above
+# 2.15 (NVIDIA H100 80GB HBM3, 700 W).
+TRAIN_SEGMENTS = ((4, 20), (8, 10), (8, 40))  # (w, steps)
+TRAIN = dict(m_per_worker=128, base_lr_1w=3e-4)
+TRAIN_DATASET = 50_000  # CIFAR-10's training set
+TRAIN_LOG_EVERY = 5
+# Learning below chance, on a batch the trainer never drew (its noise is
+# seeded by the step): loss under ln 10 - 0.2 and accuracy at least twice
+# chance's 0.1.
+HELD_OUT = dict(step=10_000, images=1024)
+HELD_LOSS_MAX = math.log(10) - 0.2
+HELD_ACCURACY_MIN = 0.2
+# One train step on the card against the same step in f32 on the CPU, at
+# the trained state. The largest readings of chip_train_lr.py's sweep
+# (seven LRs, states at steps 0, 20, 30 and 70; NVIDIA H100 80GB HBM3,
+# 700 W): f32 on the card, loss 4e-7, flat gradient 1.6e-3, worst leaf
+# 7.4e-3; bf16, loss 2.4e-3, flat gradient 0.15 (0.073 at 3e-4, step 70)
+# except at the states that spiked and settled near ln 10 (up to 0.96).
+# bf16's worst leaf reaches 0.82 outside those and is reported, not
+# gated. A fault in a conv, a norm or a cast moves these by O(1).
+STEP_CHECK_IMAGES = 32
+STEP_LIMITS = {"gpu_f32": {"loss_rel_err": 1e-5, "flat_rel_err": 1e-2,
+                           "worst_leaf_rel_err": 5e-2},
+               "gpu_bf16": {"loss_rel_err": 1e-2, "flat_rel_err": 0.25}}
 # Decode against prefill at full depth with random weights: the logits
 # have many near-ties, so bf16 noise alone flips some argmaxes (0.948
 # agreement over [2, 1024] on an H100 at 700 W; kernels against plain
@@ -108,29 +159,48 @@ def time_ms(fn, arg_sets, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_times(fn, n: int) -> tuple[dict[str, float], int]:
+def kernel_times(fn, n: int) -> tuple[dict[str, float], int, dict]:
     """Device time by kernel name (us) and the number of kernels over n
-    calls of fn, from torch.profiler's CUDA events (one stream, so the
-    kernels' times add up)."""
+    calls of fn, from torch.profiler's CUDA events, and a listing of the
+    device events per call: count, time and streams of each name.
+
+    User annotations (``record_function`` ranges that the profiler mirrors
+    on the device timeline, such as ``Optimizer.step#SGD.step``) span the
+    kernels launched inside them: they are listed, marked, and not added,
+    or each such kernel would count twice."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
     by_name: dict[str, float] = {}
+    listing: dict[str, dict] = {}
     n_kernels = 0
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        annotation = bool(getattr(e, "is_user_annotation", False))
+        row = listing.setdefault(e.name[:80], {
+            "per_call": 0.0, "us_per_call": 0.0, "streams": [],
+            "annotation": annotation})
+        row["per_call"] += 1 / n
+        row["us_per_call"] += us / n
+        stream = getattr(e, "device_resource_id", None)
+        if stream not in row["streams"]:
+            row["streams"].append(stream)
+        if not annotation:
             n_kernels += 1
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    return by_name, n_kernels
+            by_name[e.name] = by_name.get(e.name, 0.0) + us
+    return by_name, n_kernels, listing
 
 
-def device_ms(fn, arg_sets, iters: int = 20) -> float | None:
-    """Summed device time of the kernels of one fn(*args) call."""
+def device_ms(fn, arg_sets, iters: int = 20) -> tuple[float | None, dict]:
+    """Summed device time of the kernels of one fn(*args) call, and the
+    listing of its device events (``kernel_times``)."""
     it = iter(range(iters))
-    by_name, n_kernels = kernel_times(
+    by_name, n_kernels, listing = kernel_times(
         lambda: fn(*arg_sets[next(it) % len(arg_sets)]), iters)
-    return sum(by_name.values()) / iters / 1e3 if n_kernels else None
+    return (sum(by_name.values()) / iters / 1e3 if n_kernels else None), listing
 
 
 def copies(make, nbytes: int) -> list:
@@ -184,17 +254,39 @@ def swa_compare(gen, bh, s, d, window, causal, dtype) -> float:
     return err
 
 
+def sgd_compare(gen, n, nesterov, offsets=None) -> float:
+    """Kernel against the plain version on p, g, mu of length n; with
+    ``offsets``, on views at those element offsets into larger buffers."""
+    if offsets is None:
+        p, g, mu = (randn(gen, (n,), torch.float32) for _ in range(3))
+    else:
+        bufs = [randn(gen, (n + 8,), torch.float32) for _ in range(3)]
+        p, g, mu = (b[o:o + n] for b, o in zip(bufs, offsets))
+    want_p, want_mu = ref.fused_sgd_update_ref(p, g, mu, 0.1, nesterov=nesterov)
+    sgd_kernel.fused_sgd_update(p, g, mu, 0.1, nesterov=nesterov)
+    torch.cuda.synchronize()
+    err = max(float((p - want_p).abs().max()), float((mu - want_mu).abs().max()))
+    tol = TOL["fused_sgd_update"][torch.float32]
+    check(torch.allclose(p, want_p, rtol=tol, atol=tol)
+          and torch.allclose(mu, want_mu, rtol=tol, atol=tol),
+          f"fused_sgd_update n={n} nesterov={nesterov} offsets={offsets}: "
+          f"max abs err {err}")
+    return err
+
+
 def timings(kernel, plain, library, sets) -> dict:
     """Per call: the summed device time of its kernels (``*ms``, from the
-    profiler; the CUDA-event time if the profiler saw no kernel) and the
+    profiler; the CUDA-event time if the profiler saw no kernel), the
     CUDA-event time of back-to-back calls, host gaps included
-    (``*host_ms``)."""
+    (``*host_ms``), and the device events the profiler saw
+    (``*device_events``)."""
     out = {}
     for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
         host = time_ms(fn, sets)
-        dev = device_ms(fn, sets)
+        dev, listing = device_ms(fn, sets)
         out[f"{key}ms"] = host if dev is None else dev
         out[f"{key}host_ms"] = host
+        out[f"{key}device_events"] = listing
     return out
 
 
@@ -245,7 +337,29 @@ def swa_timing(gen, bh, s, d, dtype, heads: int) -> dict:
     }
 
 
-def kernel_phase(cfg) -> dict:
+def sgd_timing(gen, n) -> dict:
+    nbytes = 5 * 4 * n  # read p, g, mu; write p, mu
+
+    def make():
+        p, g, mu = (randn(gen, (n,), torch.float32) for _ in range(3))
+        lib_p = p.clone().requires_grad_()
+        lib_p.grad = g.clone()
+        opt = torch.optim.SGD([lib_p], lr=0.1, momentum=0.9, weight_decay=1e-4,
+                              fused=True)
+        opt.step()  # makes its momentum buffer outside the timed calls
+        return p, g, mu, opt
+
+    sets = copies(make, nbytes)
+    return {
+        "shape": [n], "dtype": "float32",
+        **timings(kernel=lambda p, g, mu, o: sgd_kernel.fused_sgd_update(p, g, mu, 0.1),
+                  plain=lambda p, g, mu, o: ref.fused_sgd_update_ref(p, g, mu, 0.1),
+                  library=lambda p, g, mu, o: o.step(), sets=sets),
+        **bound(nbytes, 6 * n, torch.float32),  # 3 multiplies, 3 adds
+    }
+
+
+def kernel_phase(cfg, n_resnet: int) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     b, s = PREFILL_SHAPE
     bf16, f32 = torch.bfloat16, torch.float32
@@ -259,10 +373,19 @@ def kernel_phase(cfg) -> dict:
             rms_compare(gen, shape, dtype)
         for case in SWA_SWEEP:
             swa_compare(gen, *case, dtype)
+    # main-path length (ResNet-110's parameters), both nesterov settings,
+    # the reference's sweep, and views at offsets into larger buffers
+    sgd_err = max(sgd_compare(gen, n_resnet, nesterov) for nesterov in (False, True))
+    for n in SGD_SWEEP:
+        for nesterov in (False, True):
+            sgd_compare(gen, n, nesterov)
+    for offsets in ((1, 1, 1), (3, 3, 3), (1, 2, 3)):
+        sgd_compare(gen, n_resnet, False, offsets)
     torch.cuda.synchronize()
-    print(f"kernel phase: both kernels agree with their plain versions at "
-          f"{len(RMS_SWEEP) * 2 + 2} rmsnorm and {len(SWA_SWEEP) * 2 + 2} "
-          f"swa_attention shapes", flush=True)
+    print(f"kernel phase: the three kernels agree with their plain versions at "
+          f"{len(RMS_SWEEP) * 2 + 2} rmsnorm, {len(SWA_SWEEP) * 2 + 2} "
+          f"swa_attention and {2 + 2 * len(SGD_SWEEP) + 3} fused_sgd_update "
+          f"cases", flush=True)
     return {
         "rmsnorm": {"max_abs_err": rms_err,
                     "prefill": rms_timing(gen, b * s, cfg.d_model, bf16),
@@ -270,6 +393,8 @@ def kernel_phase(cfg) -> dict:
         "swa_attention": {"max_abs_err": swa_err,
                           "prefill": swa_timing(gen, b * cfg.n_heads, s,
                                                 cfg.d_head, bf16, cfg.n_heads)},
+        "fused_sgd_update": {"max_abs_err": sgd_err,
+                             "train": sgd_timing(gen, n_resnet)},
     }
 
 
@@ -388,7 +513,7 @@ def prefill_phase(cfg, model, params) -> dict:
            "decode_vs_prefill_faulty_controls": controls}
     print("prefill phase: " + json.dumps(out), flush=True)
     check(counts == {"rmsnorm": 2 * cfg.n_layers + 1,
-                     "swa_attention": cfg.n_layers},
+                     "swa_attention": cfg.n_layers, "fused_sgd_update": 0},
           f"prefill launches {counts}")
     check(logits.shape == (b, s, cfg.vocab_size), f"logits {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "prefill logits finite")
@@ -407,22 +532,32 @@ def prefill_phase(cfg, model, params) -> dict:
     return out
 
 
-def device_profile(fn, n: int) -> dict:
+def device_profile(fn, n: int, groups: dict[str, tuple[str, ...]] | None = None) -> dict:
     """Wall time per call of fn without the profiler, then device busy time
-    and kernel time by name with it; the idle share is 1 - busy / wall."""
+    and kernel time by name with it; the idle share is 1 - busy / wall.
+    ``groups`` sums the device time of kernels whose names hold any of a
+    group's substrings (first group that matches; the rest is "other")."""
     fn()
     t0 = sync_time()
     for _ in range(n):
         fn()
     wall_us = 1e6 * (sync_time() - t0)
-    by_name, n_kernels = kernel_times(fn, n)
+    by_name, n_kernels, _ = kernel_times(fn, n)
     busy_us = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"calls": n, "wall_ms_per_call": wall_us / n / 1e3,
-            "device_busy_ms_per_call": busy_us / n / 1e3 if n_kernels else None,
-            "device_idle_share": 1 - busy_us / wall_us if n_kernels else None,
-            "kernels_per_call": n_kernels / n,
-            "top_kernels_ms_per_call": {k[:60]: v / n / 1e3 for k, v in top}}
+    out = {"calls": n, "wall_ms_per_call": wall_us / n / 1e3,
+           "device_busy_ms_per_call": busy_us / n / 1e3 if n_kernels else None,
+           "device_idle_share": 1 - busy_us / wall_us if n_kernels else None,
+           "kernels_per_call": n_kernels / n,
+           "top_kernels_ms_per_call": {k[:60]: v / n / 1e3 for k, v in top}}
+    if groups:
+        sums = dict.fromkeys([*groups, "other"], 0.0)
+        for name, us in by_name.items():
+            group = next((g for g, keys in groups.items()
+                          if any(key in name for key in keys)), "other")
+            sums[group] += us
+        out["groups_ms_per_call"] = {g: us / n / 1e3 for g, us in sums.items()}
+    return out
 
 
 def profile_phase(cfg, model, params) -> dict:
@@ -439,6 +574,255 @@ def profile_phase(cfg, model, params) -> dict:
     out = {"decode_step": device_profile(lambda: decode(params, cache, batch), 8),
            "prefill": device_profile(lambda: prefill(params, {"tokens": tokens}), 2)}
     print("profile phase: " + json.dumps(out), flush=True)
+    return out
+
+
+# ------------------------------------------------------------- training --
+class RecordingStore(CheckpointStore):
+    """A CheckpointStore that keeps a copy of the last state it saved and
+    of the last state it restored, for the bit-exact restore check."""
+
+    saved: dict | None = None
+    restored: dict | None = None
+
+    @staticmethod
+    def _copy(state) -> dict:
+        return {"params": state["params"].flat.clone(),
+                "mu": state["opt"]["mu"].flat.clone(),
+                "step": int(state["step"]), "epoch": float(state["epoch"])}
+
+    def save(self, step, state, meta=None):
+        self.saved = self._copy(state)
+        return super().save(step, state, meta)
+
+    def restore(self, template, step=None):
+        state, meta, seconds = super().restore(template, step)
+        self.restored = self._copy(state)
+        return state, meta, seconds
+
+
+def trainer(model, store, data) -> ElasticTrainer:
+    return ElasticTrainer(model, sgd(), data, store, **TRAIN, device=DEVICE)
+
+
+def segment_stats(r) -> dict:
+    images = r.steps * TRAIN["m_per_worker"] * r.w
+    return {"w": r.w, "steps": r.steps, "global_batch": TRAIN["m_per_worker"] * r.w,
+            "seconds": r.seconds, "step_ms": 1e3 * r.seconds / r.steps,
+            "images_per_s": images / r.seconds, "epochs": r.epochs,
+            "losses": [loss for _, _, loss in r.losses],
+            "save_seconds": r.save_seconds, "restore_seconds": r.restore_seconds}
+
+
+def exact_resume(model, data, root: Path) -> dict:
+    """5 + 5 steps at w = 4 against 10 uninterrupted, with cuDNN's
+    deterministic algorithms for this check only."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        w = TRAIN_SEGMENTS[0][0]
+        whole = trainer(model, CheckpointStore(str(root / "whole")), data)
+        straight = [l for _, _, l in whole.train_segment(
+            w, 10, resume=False, log_every=1).losses]
+        parts = trainer(model, CheckpointStore(str(root / "parts")), data)
+        parts.train_segment(w, 5, resume=False, log_every=1)
+        resumed = [l for _, _, l in parts.train_segment(
+            w, 5, resume=True, log_every=1).losses]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight[5:]))
+    check(worst <= 1e-5, f"exact resume: {resumed} vs {straight[5:]}")
+    return {"uninterrupted": straight[5:], "resumed": resumed, "max_rel_err": worst}
+
+
+def kernel_on_trained_state(model, store, data) -> float:
+    """From one set of gradients at the trained state, the kernel and the
+    plain version on copies of parameters and momentum."""
+    tr = trainer(model, store, data)
+    state, _, _ = store.restore(tr.fresh_state())
+    w = TRAIN_SEGMENTS[-1][0]
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in
+             data.batch(int(state["step"]), TRAIN["m_per_worker"] * w).items()}
+    _, grads = value_and_flat_grad(model, state["params"], batch)
+    lr = tr._lr(w, float(state["epoch"]))
+    p, mu = state["params"].flat, state["opt"]["mu"].flat
+    want_p, want_mu = ref.fused_sgd_update_ref(p, grads, mu, lr)
+    got_p, got_mu = p.clone(), mu.clone()
+    sgd_kernel.fused_sgd_update(got_p, grads, got_mu, lr)
+    torch.cuda.synchronize()
+    err = max(float((got_p - want_p).abs().max()), float((got_mu - want_mu).abs().max()))
+    tol = TOL["fused_sgd_update"][torch.float32]
+    check(torch.allclose(got_p, want_p, rtol=tol, atol=tol)
+          and torch.allclose(got_mu, want_mu, rtol=tol, atol=tol),
+          f"fused_sgd_update on the trained state: max abs err {err}")
+    return err
+
+
+def grad_errors(got: torch.Tensor, want: torch.Tensor, shapes: dict) -> dict:
+    """Relative L2 error of a flat gradient against a reference: over the
+    whole buffer and at its worst leaf (``shapes`` from FlatTree.shapes,
+    in the buffer's order)."""
+    got, want = got.double().cpu(), want.double().cpu()
+    worst, worst_leaf, off = 0.0, None, 0
+    for path, shape in shapes.items():
+        size = math.prod(shape)
+        g, r = got[off:off + size], want[off:off + size]
+        err = float((g - r).norm() / (r.norm() + 1e-30))
+        if err > worst:
+            worst, worst_leaf = err, path
+        off += size
+    return {"flat_rel_err": float((got - want).norm() / want.norm()),
+            "worst_leaf_rel_err": worst, "worst_leaf": worst_leaf}
+
+
+def step_vs_f32(model, store, data, step: int) -> dict:
+    """One train step's loss and flat gradient on the card, held against
+    the same step computed in f32 on the host's CPU, at the state of the
+    checkpoint at ``step`` and on STEP_CHECK_IMAGES of its next batch:
+    the f32 model on the card (cuDNN and cuBLAS without TF32) and the bf16
+    model that the trainer runs."""
+    tr = trainer(model, store, data)
+    state, _, _ = store.restore(tr.fresh_state(), step=step)
+    params = state["params"]
+    batch = data.batch(int(state["step"]), STEP_CHECK_IMAGES)
+    f32 = build_model(resnet110.CONFIG, dtype=torch.float32)
+    cpu = pspec.views(params.flat.cpu(), params.shapes())
+    want_loss, want = value_and_flat_grad(
+        f32, cpu, {k: torch.as_tensor(v) for k, v in batch.items()})
+    on_card = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+    out = {"images": STEP_CHECK_IMAGES, "cpu_f32_loss": float(want_loss)}
+    for name, m in (("gpu_f32", f32), ("gpu_bf16", model)):
+        loss, grads = value_and_flat_grad(m, params, on_card)
+        out[name] = {"loss": float(loss),
+                     "loss_rel_err": abs(float(loss) - float(want_loss))
+                     / abs(float(want_loss)),
+                     **grad_errors(grads, want, params.shapes())}
+    return out
+
+
+# kernel-name substrings of a train step's parts, for its profile
+TRAIN_KERNEL_GROUPS = {
+    "fused_sgd_update": ("fused_sgd",),
+    "conv_forward": ("fprop",),
+    "conv_data_grad": ("dgrad",),
+    "conv_weight_grad": ("wgrad",),
+    "layout_conversion": ("nchwToNhwc", "nhwcToNchw"),
+    "group_norm": ("RowwiseMoments", "ComputeFusedParams", "ComputeInternalGradients",
+                   "ComputeBackwardFusedParams", "GammaBetaBackward"),
+    "elementwise": ("elementwise", "vectorized"),
+    "reduce": ("reduce_kernel",),
+}
+
+
+def train_profile(model, data, store) -> dict:
+    """Where a train step's time goes at w = 4: wall time per step with the
+    host's batch generation, device time by kernel and by part of the step,
+    the SGD kernel's share."""
+    tr = trainer(model, store, data)
+    state, _, _ = store.restore(tr.fresh_state())
+    train_state = {"params": state["params"], "opt": state["opt"]}
+    step = make_train_step(model, tr.opt, device=DEVICE)
+    batch_size = TRAIN["m_per_worker"] * TRAIN_SEGMENTS[0][0]
+    it = iter(range(1000))
+
+    def one():
+        nonlocal train_state
+        train_state, loss = step(train_state, data.batch(next(it), batch_size), 0.01)
+        return loss
+
+    t0 = time.perf_counter()
+    for i in range(4):
+        data.batch(i, batch_size)
+    host_batch_ms = 1e3 * (time.perf_counter() - t0) / 4
+    out = device_profile(one, 4, TRAIN_KERNEL_GROUPS)
+    busy = out["device_busy_ms_per_call"]
+    sgd_ms = out["groups_ms_per_call"]["fused_sgd_update"]
+    out.update(host_batch_ms=host_batch_ms, sgd_kernel_ms_per_step=sgd_ms,
+               sgd_share_of_device_time=sgd_ms / busy if busy else None)
+    return out
+
+
+def held_out(model, store, data) -> dict:
+    """Loss and accuracy of the last checkpoint on the HELD_OUT batch."""
+    state, _, _ = store.restore(trainer(model, store, data).fresh_state())
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in
+             data.batch(HELD_OUT["step"], HELD_OUT["images"]).items()}
+    with torch.no_grad():
+        return {"step": int(state["step"]), "images": HELD_OUT["images"],
+                "loss": float(model.loss(state["params"], batch)),
+                "accuracy": float(model.accuracy(state["params"], batch))}
+
+
+def train_phase() -> dict:
+    cfg = resnet110.CONFIG
+    model = build_model(cfg)
+    data = CifarLike(size=TRAIN_DATASET, seed=0)
+    (w1, n1), (w2, n2), (w3, n3) = TRAIN_SEGMENTS
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        # warm-up at both batches (cuDNN plans, allocator), not counted
+        warm = trainer(model, CheckpointStore(str(root / "warm")), data)
+        warm.train_segment(w1, 2, resume=False)
+        warm.train_segment(w2, 2)
+
+        store = RecordingStore(str(root / "main"))
+        tr = trainer(model, store, data)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        r1 = tr.train_segment(w1, n1, resume=False, log_every=TRAIN_LOG_EVERY)
+        after_first = ops.launch_counts()
+        saved = store.saved
+        r2 = tr.train_segment(w2, n2, resume=True, log_every=TRAIN_LOG_EVERY)
+        restored = store.restored
+        r3 = tr.train_segment(w3, n3, resume=True, log_every=TRAIN_LOG_EVERY)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+
+        with np.load(store._path(n1)) as z:
+            on_disk = {k: z[k] for k in z.files}
+        mine = torch.cat([torch.as_tensor(v).reshape(-1) for k, v in sorted(
+            on_disk.items()) if k.startswith("params/")])
+        exact = {"params": torch.equal(saved["params"], restored["params"]),
+                 "momentum": torch.equal(saved["mu"], restored["mu"]),
+                 "file": torch.equal(saved["params"].cpu(), mine)}
+        out = {"config": cfg.name, "n_params": int(saved["params"].numel()),
+               "base_lr_1w": TRAIN["base_lr_1w"],
+               "segments": [segment_stats(r) for r in (r1, r2, r3)],
+               "stop_restart_seconds": r1.save_seconds + r2.restore_seconds,
+               "peak_memory_bytes": peak, "launches": counts,
+               "restore_bit_exact": exact,
+               "restored_step": restored["step"], "restored_epoch": restored["epoch"],
+               "held_out": held_out(model, store, data)}
+        out["kernel_vs_plain_on_trained_state_max_abs_err"] = kernel_on_trained_state(
+            model, store, data)
+        out["step_vs_f32"] = step_vs_f32(model, store, data, step=n1 + n2 + n3)
+        out["exact_resume"] = exact_resume(model, data, root)
+        out["profile"] = train_profile(model, data, store)
+    print("train phase: " + json.dumps(out), flush=True)
+
+    losses1, losses2, losses3 = (s["losses"] for s in out["segments"])
+    check(after_first == {"rmsnorm": 0, "swa_attention": 0, "fused_sgd_update": n1},
+          f"launches after the first segment {after_first}")
+    check(counts == {"rmsnorm": 0, "swa_attention": 0,
+                     "fused_sgd_update": n1 + n2 + n3},
+          f"train launches {counts}: one fused_sgd_update per step")
+    check(all(math.isfinite(l) for l in losses1 + losses2 + losses3), "losses finite")
+    check(sum(losses2) / len(losses2) < losses1[0],
+          f"second segment's mean loss {losses2} below the first loss {losses1[0]}")
+    held = out["held_out"]
+    check(held["loss"] < HELD_LOSS_MAX and held["accuracy"] >= HELD_ACCURACY_MIN,
+          f"learned below chance: held-out {held}, limits loss < {HELD_LOSS_MAX}, "
+          f"accuracy >= {HELD_ACCURACY_MIN}")
+    for name, limits in STEP_LIMITS.items():
+        got = out["step_vs_f32"][name]
+        for key, limit in limits.items():
+            check(got[key] < limit, f"train step {name} vs f32 on the CPU: "
+                  f"{key} {got[key]} >= {limit}")
+    check(all(exact.values()), f"restore bit-exact: {exact}")
+    check(restored["step"] == n1 and restored["epoch"] == saved["epoch"],
+          f"step and epoch carried over: {restored['step']}, {restored['epoch']}")
+    check(r2.losses[0][0] == n1 and r2.epochs > r1.epochs, "segment 2 continues segment 1")
+    check(r3.losses[0][0] == n1 + n2 and r3.epochs > r2.epochs,
+          "segment 3 continues segment 2")
     return out
 
 
@@ -464,7 +848,9 @@ def main() -> int:
     print(smi, flush=True)
 
     cfg = get_config(ARCH)
-    kernels = kernel_phase(cfg)
+    n_resnet = pspec.n_params(build_model(resnet110.CONFIG).param_specs())
+    kernels = kernel_phase(cfg, n_resnet)
+    print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     model = build_model(cfg)
     t0 = sync_time()
@@ -474,11 +860,18 @@ def main() -> int:
     served = serve_phase(cfg, params)
     prefilled = prefill_phase(cfg, model, params)
     profile_phase(cfg, model, params)
+    del model, params  # the trainer's peak memory is its own
+    torch.cuda.empty_cache()
+    print(f"serving phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    trained = train_phase()
+    print(f"train phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     tpu = {"rmsnorm": "src/repro/kernels/rmsnorm.py:25",
-           "swa_attention": "src/repro/kernels/swa_attention.py:81"}
+           "swa_attention": "src/repro/kernels/swa_attention.py:81",
+           "fused_sgd_update": "src/repro/kernels/fused_update.py:31"}
     entries = []
-    for name, k in kernels.items():
+    for name in ("rmsnorm", "swa_attention"):
+        k = kernels[name]
         entries.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
@@ -489,6 +882,16 @@ def main() -> int:
             "max_abs_err": k["max_abs_err"],
             **k["prefill"], "kernel_ms": k["prefill"]["ms"],  # the issue's name
             **({"at_decode": k["decode"]} if "decode" in k else {})})
+    k = kernels["fused_sgd_update"]
+    train_steps = sum(n for _, n in TRAIN_SEGMENTS)
+    entries.append({
+        "name": "fused_sgd_update", "route": "cuda",
+        "source": "src/repro_torch/csrc/fused_sgd_update.cu",
+        "replaces": tpu["fused_sgd_update"],
+        "tpu_counterpart": f"{tpu['fused_sgd_update']} fused_sgd_update",
+        "launches": trained["launches"]["fused_sgd_update"],
+        "launches_per_train_step": trained["launches"]["fused_sgd_update"] / train_steps,
+        "max_abs_err": k["max_abs_err"], **k["train"], "kernel_ms": k["train"]["ms"]})
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on the main path")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -5,6 +5,9 @@ The reference's parameter tree, flattened to ``/``-joined paths as
 ``final_norm/scale``, ``embed``, ...), becomes the port's nested dict of
 tensors with the same paths. The port never imports the store: callers
 flatten the tree themselves.
+
+The ResNet keeps the reference's layouts, so its map is the identity: each
+array is copied into its view of the port's flat parameter buffer.
 """
 from __future__ import annotations
 
@@ -12,12 +15,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.resnet110 import ResNetConfig
 from repro_torch.models import spec as pspec
 from repro_torch.models.registry import build_model
 
 
-def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig, device,
-                      dtype: torch.dtype = torch.bfloat16) -> dict:
+def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig | ResNetConfig,
+                      device, dtype: torch.dtype = torch.bfloat16) -> dict:
     """Port parameters of ``cfg`` from the reference's flattened tree.
 
     Each weight is kept in the dtype in which the reference uses it: the
@@ -27,6 +31,8 @@ def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig, device,
     reference's activations; float32 when the model runs in f32). Norm
     gains stay f32 (``1 + w`` in f32), and ``embed``/``unembed`` stay f32
     (``lm_logits`` is f32; the embedding is gathered, then cast).
+    A ResNet's parameters are all f32 and come back as one FlatTree
+    (``models.spec``), whatever ``dtype``.
 
     Raises KeyError if a path is missing or extra, ValueError on a shape
     that is not the config's.
@@ -43,4 +49,6 @@ def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig, device,
             raise ValueError(f"{path}: shape {arr.shape}, config wants {spec.shape}")
         out[path] = torch.from_numpy(np.array(arr, np.float32)).to(
             device=device, dtype=spec.dtype)
+    if isinstance(cfg, ResNetConfig):
+        return pspec.flat_tree(out, device)
     return pspec.unflatten(out)

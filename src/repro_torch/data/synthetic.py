@@ -1,7 +1,9 @@
-"""Deterministic synthetic data: a copy of ``repro.data.synthetic.TokenStream``.
+"""Deterministic synthetic data: copies of ``repro.data.synthetic``'s
+``TokenStream`` and ``CifarLike``.
 
 Every batch is a pure function of (seed, step), so the port and the JAX
-package draw the same prompts from the same seed.
+package draw the same prompts and images from the same seed, and elastic
+restarts resume the stream exactly.
 """
 from __future__ import annotations
 
@@ -31,3 +33,32 @@ class TokenStream:
             nxt = self.perm[toks[:, t]]
             toks[:, t + 1] = np.where(flip[:, t], rand[:, t], nxt)
         return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+class CifarLike:
+    """Synthetic CIFAR-10-like dataset: ``size`` images whose class signal
+    is a fixed per-class template + noise (linearly separable-ish, so the
+    ResNet's loss curve has the O(1/k) shape eq. (1) models)."""
+
+    def __init__(self, size: int = 50_000, image: int = 32, classes: int = 10,
+                 seed: int = 0):
+        self.size = size
+        self.image = image
+        self.classes = classes
+        rng = np.random.default_rng(seed)
+        self.templates = rng.normal(size=(classes, image, image, 3)
+                                    ).astype(np.float32)
+        self.labels_all = rng.integers(0, classes, size).astype(np.int32)
+        self.seed = seed
+
+    def batch(self, step: int, batch_size: int) -> dict:
+        idx = (np.arange(batch_size) + step * batch_size) % self.size
+        labels = self.labels_all[idx]
+        rng = np.random.default_rng((self.seed, step, 7))
+        noise = rng.normal(scale=1.0, size=(batch_size, self.image,
+                                            self.image, 3)).astype(np.float32)
+        images = 0.6 * self.templates[labels] + noise
+        return {"images": images, "labels": labels}
+
+    def steps_per_epoch(self, batch_size: int) -> float:
+        return self.size / batch_size

@@ -31,6 +31,19 @@ def swa_attention_ref(q, k, v, *, causal: bool = True,
     return torch.einsum("bqk,bkd->bqd", p, vf).to(q.dtype)
 
 
+def fused_sgd_update_ref(params_flat, grads_flat, mu_flat, lr, *,
+                         momentum: float = 0.9, weight_decay: float = 1e-4,
+                         nesterov: bool = False):
+    """Momentum SGD, -> (new_params, new_mu); the inputs are not changed.
+    Each product and sum is its own f32 op, in the reference's order."""
+    p = params_flat.float()
+    g = grads_flat.float() + weight_decay * p
+    mu_new = momentum * mu_flat.float() + g
+    step = (g + momentum * mu_new) if nesterov else mu_new
+    return ((p - lr * step).to(params_flat.dtype),
+            mu_new.to(mu_flat.dtype))
+
+
 def rmsnorm_ref(x, w, *, eps: float = 1e-6):
     xf = x.float()
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)

@@ -1,18 +1,23 @@
 """Model factory: config -> model object (torch twin of ``repro.models.registry``).
 
-Only the decoder-only transformer family is ported; the other families
-come in later slices (see ROADMAP.md).
+The decoder-only transformer family and the ResNet are ported; the other
+families come in later slices (see ROADMAP.md).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.resnet110 import ResNetConfig
+from repro_torch.models.resnet import ResNetModel
 from repro_torch.models.transformer import TransformerModel
 
 
-def build_model(cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16):
+def build_model(cfg: ModelConfig | ResNetConfig,
+                dtype: torch.dtype = torch.bfloat16):
     """``dtype``: the compute dtype of activations and matmul weights."""
+    if isinstance(cfg, ResNetConfig):
+        return ResNetModel(cfg, dtype)
     if cfg.family in ("ssm", "hybrid", "audio"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "

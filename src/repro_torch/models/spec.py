@@ -81,6 +81,52 @@ def _init_one(gen: torch.Generator, s: TensorSpec, device) -> torch.Tensor:
     return (x * std).to(s.dtype)
 
 
+class FlatTree(dict):
+    """A nested dict of tensors whose leaves are views, in ``flatten``'s
+    path order, into one contiguous 1-D buffer ``flat``: an update of
+    ``flat`` is an update of every leaf, and a copy into a leaf writes
+    ``flat``. The optimizer updates the whole buffer at once."""
+
+    flat: torch.Tensor
+
+    def shapes(self) -> dict[str, tuple[int, ...]]:
+        return {p: tuple(v.shape) for p, v in flatten(self).items()}
+
+    def zeros_like(self) -> "FlatTree":
+        return views(torch.zeros_like(self.flat), self.shapes())
+
+
+def views(flat: torch.Tensor, shapes: dict[str, tuple[int, ...]]) -> FlatTree:
+    """A FlatTree over ``flat``: the leaf at each path of ``shapes`` (in
+    ``flatten``'s order) views the next ``prod(shape)`` elements."""
+    order = flatten(unflatten(dict(shapes)))
+    total = sum(math.prod(s) for s in order.values())
+    if flat.dim() != 1 or flat.numel() != total or not flat.is_contiguous():
+        raise ValueError(f"flat buffer {tuple(flat.shape)} cannot hold "
+                         f"{total} elements")
+    leaves, off = {}, 0
+    for path, shape in order.items():
+        size = math.prod(shape)
+        leaves[path] = flat[off:off + size].view(shape)
+        off += size
+    out = FlatTree(unflatten(leaves))
+    out.flat = flat
+    return out
+
+
+def flat_tree(tree: dict, device=None) -> FlatTree:
+    """Copy the leaves of ``tree`` into one new flat f32 buffer."""
+    leaves = flatten(tree)
+    first = next(iter(leaves.values()))
+    flat = torch.empty(sum(t.numel() for t in leaves.values()),
+                       dtype=torch.float32,
+                       device=first.device if device is None else device)
+    out = views(flat, {p: tuple(t.shape) for p, t in leaves.items()})
+    for path, v in flatten(out).items():
+        v.copy_(leaves[path])
+    return out
+
+
 def init_params(generator: torch.Generator, tree: dict, device) -> dict:
     """Materialize real parameters from a spec tree, one draw per leaf in
     path order. ``generator`` must live on ``device``."""

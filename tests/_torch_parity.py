@@ -1,12 +1,13 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): the
-same numpy values handed to both packages, and the f32-activation patch
-of tests/test_decode_consistency.py::test_jamba_decode_exact_in_f32
-applied to both."""
+same numpy values handed to both packages, the f32-activation patch of
+tests/test_decode_consistency.py::test_jamba_decode_exact_in_f32 applied
+to both, and the f32 patch of the reference's ResNet."""
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 import repro.models.layers as JL
+import repro.models.resnet as JR
 import repro_torch.models.layers as TL
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -41,3 +42,20 @@ def patch_f32_embeddings(mp) -> None:
     downstream is f32 (``mp`` is a pytest MonkeyPatch)."""
     mp.setattr(JL, "embed_tokens", _jax_embed_f32)
     mp.setattr(TL, "embed_tokens", _torch_embed_f32)
+
+
+class _JnpWithF32Bfloat16:
+    """``jax.numpy`` with ``bfloat16`` standing for ``float32``."""
+
+    bfloat16 = jnp.float32
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def patch_resnet_f32(mp) -> None:
+    """Run the reference ResNet's activations in f32: its ``apply`` casts
+    the images to ``jnp.bfloat16``, so the ``jnp`` name inside
+    ``repro.models.resnet`` (and only there) becomes a proxy whose
+    ``bfloat16`` is ``float32``. ``mp`` is a pytest MonkeyPatch."""
+    mp.setattr(JR, "jnp", _JnpWithF32Bfloat16())

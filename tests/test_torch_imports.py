@@ -46,7 +46,12 @@ def _foreign(modules: list[str]) -> list[str]:
 def test_every_module_imports_without_jax_or_repro():
     names = _port_modules()
     assert {"repro_torch.launch.serve", "repro_torch.kernels.swa_attention",
-            "repro_torch.kernels.rmsnorm", "repro_torch.bridge"} <= set(names)
+            "repro_torch.kernels.rmsnorm", "repro_torch.bridge",
+            "repro_torch.configs.resnet110", "repro_torch.data.synthetic",
+            "repro_torch.kernels.fused_update", "repro_torch.optim.schedule",
+            "repro_torch.optim.optimizers", "repro_torch.models.resnet",
+            "repro_torch.checkpoint.store", "repro_torch.engine.steps",
+            "repro_torch.core.elastic"} <= set(names)
     loaded = _loaded_after("\n".join(f"import {n}" for n in names))
     assert "repro_torch" in loaded and "torch" in loaded
     assert _foreign(loaded) == []
@@ -57,7 +62,7 @@ def test_chip_smoke_imports_without_jax_or_repro():
         "import importlib.util\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))")
-    assert "repro_torch.launch.serve" in loaded
+    assert {"repro_torch.launch.serve", "repro_torch.core.elastic"} <= set(loaded)
     assert _foreign(loaded) == []
 
 
@@ -66,6 +71,26 @@ def test_chip_smoke_fails_without_a_gpu():
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], env=env,
                          cwd=ROOT, capture_output=True, text=True)
+    assert out.returncode != 0
+    assert out.stdout == ""
+
+
+def test_chip_train_lr_imports_without_jax_or_repro():
+    loaded = _loaded_after(
+        "import sys, importlib.util\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"spec = importlib.util.spec_from_file_location('chip_train_lr', {str(ROOT / 'chip_train_lr.py')!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))")
+    assert {"chip_smoke", "repro_torch.core.elastic"} <= set(loaded)
+    assert _foreign(loaded) == []
+
+
+def test_chip_train_lr_fails_without_a_gpu():
+    """No CUDA device: the LR sweep exits non-zero and prints nothing."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_train_lr.py"),
+                          "--lrs", "3e-4"], env=env, cwd=ROOT,
+                         capture_output=True, text=True)
     assert out.returncode != 0
     assert out.stdout == ""
 
@@ -100,6 +125,40 @@ def test_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch):
     make_decode_step(model, device="cpu")
 
 
+def test_trainer_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.configs.resnet110 import smoke_config
+    from repro_torch.core.elastic import ElasticTrainer
+    from repro_torch.data.synthetic import CifarLike
+    from repro_torch.engine.steps import init_train_state, make_train_step
+    from repro_torch.models.resnet import ResNetModel
+    from repro_torch.optim import sgd
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model, opt = ResNetModel(smoke_config()), sgd()
+    args = (model, opt, CifarLike(size=16), CheckpointStore(str(tmp_path)))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ElasticTrainer(*args, base_lr_1w=0.1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_train_step(model, opt)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_train_state(model, opt)
+    ElasticTrainer(*args, base_lr_1w=0.1, device="cpu")
+    make_train_step(model, opt, device="cpu")
+    init_train_state(model, opt, device="cpu")
+
+
+@pytest.mark.parametrize("kwargs", [{"grad_exchange": "ring"}, {"microbatches": 2}])
+def test_train_step_options_of_later_slices_raise(kwargs):
+    from repro_torch.configs.resnet110 import smoke_config
+    from repro_torch.engine.steps import make_train_step
+    from repro_torch.models.resnet import ResNetModel
+    from repro_torch.optim import sgd
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_train_step(ResNetModel(smoke_config()), sgd(), device="cpu", **kwargs)
+
+
 def test_steps_refuse_params_on_another_device():
     from repro_torch.configs import get_smoke_config
     from repro_torch.engine.steps import make_prefill
@@ -127,4 +186,24 @@ def test_no_kernel_launches_on_the_cpu():
     logits = make_prefill(model, device="cpu")(
         params, {"tokens": np.zeros((2, 40), np.int32)})
     assert logits.shape == (2, 40, cfg.vocab_size)
-    assert ops.launch_counts() == {"rmsnorm": 0, "swa_attention": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "swa_attention": 0,
+                                   "fused_sgd_update": 0}
+
+
+def test_no_kernel_launches_in_a_cpu_training_segment(tmp_path):
+    from repro_torch.checkpoint.store import CheckpointStore
+    from repro_torch.configs.resnet110 import smoke_config
+    from repro_torch.core.elastic import ElasticTrainer
+    from repro_torch.data.synthetic import CifarLike
+    from repro_torch.kernels import ops
+    from repro_torch.models.resnet import ResNetModel
+    from repro_torch.optim import sgd
+
+    ops.reset_launch_counts()
+    tr = ElasticTrainer(ResNetModel(smoke_config()), sgd(), CifarLike(size=64),
+                        CheckpointStore(str(tmp_path)), base_lr_1w=0.05,
+                        m_per_worker=4, device="cpu")
+    r = tr.train_segment(w=2, n_steps=3, resume=False, log_every=1)
+    assert len(r.losses) == 3 and all(np.isfinite(l) for _, _, l in r.losses)
+    assert ops.launch_counts() == {"rmsnorm": 0, "swa_attention": 0,
+                                   "fused_sgd_update": 0}

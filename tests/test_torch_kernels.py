@@ -8,12 +8,15 @@ import pytest
 
 pytest.importorskip("torch")  # the CI lane without torch skips the port
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from _hypothesis_compat import given, settings, strategies as st
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import fused_update as sgd_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rms_kernel
 from repro_torch.kernels import swa_attention as swa_kernel
@@ -90,7 +93,89 @@ def test_rmsnorm_matches_model_layer():
         rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("call", ["rmsnorm", "swa_attention"])
+def _sgd_inputs(n, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(n, dtype=np.float32) for _ in range(3)]
+
+
+def _sgd_port(p, g, mu, lr, **kw):
+    """The port's dispatch (the plain version on the CPU), in place on
+    tensors made from the numpy inputs; -> (new_p, new_mu) as numpy."""
+    tp, tg, tmu = (torch.from_numpy(a.copy()) for a in (p, g, mu))
+    out_p, out_mu = ops.fused_sgd_update(tp, tg, tmu, lr, **kw)
+    assert out_p is tp and out_mu is tmu  # updated in place
+    return tp.numpy(), tmu.numpy()
+
+
+def _assert_sgd_matches(got, want, atol=1e-5):
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5, atol=atol)
+
+
+@settings(max_examples=10, deadline=None)
+@given(n=st.integers(1, 5000), lr=st.floats(1e-4, 1.0),
+       momentum=st.floats(0.0, 0.99))
+def test_fused_update_property(n, lr, momentum):
+    p, g, mu = _sgd_inputs(n, n)
+    got = _sgd_port(p, g, mu, lr, momentum=momentum)
+    jp, jg, jmu = (jnp.asarray(a) for a in (p, g, mu))
+    _assert_sgd_matches(got, jref.fused_sgd_update_ref(jp, jg, jmu, lr,
+                                                       momentum=momentum))
+    _assert_sgd_matches(got, jops.fused_sgd_update(jp, jg, jmu, lr,
+                                                   momentum=momentum,
+                                                   block=512, interpret=True))
+
+
+@pytest.mark.parametrize("nesterov", [False, True])
+@pytest.mark.parametrize("n,block", [(65536, 65536), (100001, 4096), (7, 8)])
+def test_fused_update_shapes(n, block, nesterov):
+    p, g, mu = _sgd_inputs(n, 7)
+    got = _sgd_port(p, g, mu, 0.1, nesterov=nesterov)
+    jp, jg, jmu = (jnp.asarray(a) for a in (p, g, mu))
+    _assert_sgd_matches(got, jref.fused_sgd_update_ref(jp, jg, jmu, 0.1,
+                                                       nesterov=nesterov))
+    _assert_sgd_matches(got, jops.fused_sgd_update(jp, jg, jmu, 0.1,
+                                                   nesterov=nesterov,
+                                                   block=block, interpret=True))
+
+
+def test_fused_update_equals_sgd_optimizer_step():
+    """The port's fused update over a flat buffer is a drop-in for the
+    reference's per-leaf jnp SGD step."""
+    from repro.optim.optimizers import sgd as jax_sgd
+    opt = jax_sgd(momentum=0.9, weight_decay=1e-4)
+    rng = np.random.default_rng(9)
+    params = {"a": rng.standard_normal(33, dtype=np.float32),
+              "b": rng.standard_normal(17, dtype=np.float32)}
+    jparams = {k: jnp.asarray(v) for k, v in params.items()}
+    grads = jax.tree_util.tree_map(lambda x: x * 0.1, jparams)
+    new_params, _ = opt.update(grads, opt.init(jparams), jparams, 0.05)
+
+    flat_p = np.concatenate([params["a"], params["b"]])
+    got_p, _ = _sgd_port(flat_p, flat_p * np.float32(0.1),
+                         np.zeros_like(flat_p), 0.05,
+                         momentum=0.9, weight_decay=1e-4)
+    want_p = np.concatenate([new_params["a"], new_params["b"]])
+    np.testing.assert_allclose(got_p, want_p, rtol=1e-5, atol=1e-6)
+
+
+def test_fused_update_in_place_on_offset_views():
+    """Views into larger buffers, at offsets that differ, are updated in
+    place and nothing around them changes."""
+    p, g, mu = _sgd_inputs(1001, 3)
+    want = ref.fused_sgd_update_ref(*(torch.from_numpy(a) for a in (p, g, mu)), 0.1)
+    bufs = [torch.zeros(1010) for _ in range(3)]
+    views = [b[off:off + 1001] for b, off in zip(bufs, (1, 2, 5))]
+    for v, a in zip(views, (p, g, mu)):
+        v.copy_(torch.from_numpy(a))
+    ops.fused_sgd_update(views[0], views[1], views[2], 0.1)
+    torch.testing.assert_close(views[0], want[0], rtol=0, atol=0)
+    torch.testing.assert_close(views[2], want[1], rtol=0, atol=0)
+    for b, off in zip(bufs, (1, 2, 5)):
+        assert not b[:off].any() and not b[off + 1001:].any()
+
+
+@pytest.mark.parametrize("call", ["rmsnorm", "swa_attention", "fused_sgd_update"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper launches on CUDA tensors only; it never runs the
     plain version itself, and counts nothing when it refuses."""
@@ -99,8 +184,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="CUDA"):
         if call == "rmsnorm":
             rms_kernel.rmsnorm(x, torch.zeros(32))
-        else:
+        elif call == "swa_attention":
             swa_kernel.swa_attention(x, x, x)
+        else:
+            sgd_kernel.fused_sgd_update(x[0, 0], x[0, 1], x[1, 0], 0.1)
     assert ops.launch_counts() == before
 
 
@@ -145,3 +232,38 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
     tol = 1e-5 if dtype == "float32" else 2e-2
     np.testing.assert_allclose(as_f32(got), as_f32(ref.rmsnorm_ref(x, w)),
                                rtol=tol, atol=tol)
+
+
+def _sgd_kernel_vs_plain(views, nesterov):
+    """Kernel on ``views`` (p, g, mu) against the plain version on copies."""
+    p, g, mu = views
+    want_p, want_mu = ref.fused_sgd_update_ref(p.clone(), g, mu.clone(), 0.1,
+                                               nesterov=nesterov)
+    n = sgd_kernel.fused_sgd_update.launches
+    sgd_kernel.fused_sgd_update(p, g, mu, 0.1, nesterov=nesterov)
+    torch.cuda.synchronize()
+    assert sgd_kernel.fused_sgd_update.launches == n + 1
+    for got, want in ((p, want_p), (mu, want_mu)):
+        np.testing.assert_allclose(as_f32(got), as_f32(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nesterov", [False, True])
+@pytest.mark.parametrize("n", [1, 7, 4099, 65536, 100001, 1_727_962])
+def test_fused_update_kernel_matches_plain(cuda, n, nesterov):
+    views = [torch.from_numpy(a).to(cuda) for a in _sgd_inputs(n, n)]
+    _sgd_kernel_vs_plain(views, nesterov)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offsets", [(1, 1, 1), (1, 2, 3), (4, 4, 4)])
+def test_fused_update_kernel_on_offset_views(cuda, offsets):
+    """Views at a shared 4-byte offset (scalar head, vector body, scalar
+    tail), at offsets that differ (all scalar) and 16-byte aligned."""
+    n = 10_007
+    bufs = [torch.from_numpy(a).to(cuda) for a in _sgd_inputs(n + 8, 5)]
+    views = [b[o:o + n] for b, o in zip(bufs, offsets)]
+    before = [b.clone() for b in bufs]
+    _sgd_kernel_vs_plain(views, nesterov=False)
+    for b, old, o in zip(bufs, before, offsets):
+        assert torch.equal(b[:o], old[:o]) and torch.equal(b[o + n:], old[o + n:])
