@@ -8,8 +8,10 @@
 2. prints the card's name and power limit (nvidia-smi);
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card, at the main path's shapes and at the shape sweeps of
-   tests/test_kernels.py, and times kernel, plain version and the PyTorch
-   library call that computes the same function (yardstick only);
+   tests/test_kernels.py (swa_attention in both dtype routes: bf16 on the
+   tensor cores, f32 on the CUDA cores), and times kernel, plain version
+   and the PyTorch library call that computes the same function
+   (yardstick only);
 4. serve phase: qwen2.5-3b at full published width, random weights from a
    seeded CUDA generator, serve(batch=4, prompt_len=128, new_tokens=32);
    the rmsnorm kernel must run exactly 73 times per decode step;
@@ -83,12 +85,17 @@ PREFILL_SHAPE = (2, 1024)
 TOL = {"rmsnorm": {torch.float32: 1e-5, torch.bfloat16: 2e-2},
        "swa_attention": {torch.float32: 2e-5, torch.bfloat16: 2e-2},
        "fused_sgd_update": {torch.float32: 1e-5}}
-# tests/test_kernels.py sweeps, plus danube's head dim 80 and a width that
-# is not a multiple of the 16-byte vector.
+# tests/test_kernels.py sweeps, plus danube's head dim 80, a width that
+# is not a multiple of the 16-byte vector, and the edges of the bf16
+# kernel's 64-row q tiles and 64-key K/V tiles: many band-skipped tiles
+# with a window that is a multiple of no tile, a ragged S at the prefill's
+# D, D = 80 with a ragged S and a window, an S within one tile at D = 256.
 SWA_SWEEP = [(2, 256, 64, None, True), (2, 256, 64, 128, True),
              (1, 384, 128, 96, True), (3, 128, 128, None, False),
              (1, 130, 32, 64, True), (2, 64, 256, 32, True),
-             (2, 200, 80, None, True)]
+             (2, 200, 80, None, True), (4, 2048, 128, 512, True),
+             (2, 1000, 128, None, True), (2, 333, 80, 100, True),
+             (1, 64, 256, None, True)]
 RMS_SWEEP = [(4, 128, 512), (1, 7, 64), (300, 1024), (2, 2048), (3, 100)]
 SGD_SWEEP = (7, 65536, 100001)
 # The trainer: Table 2's 4 -> 8 restart at the paper's 128 images per GPU,
@@ -392,7 +399,9 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
                     "decode": rms_timing(gen, SERVE["batch"], cfg.d_model, bf16)},
         "swa_attention": {"max_abs_err": swa_err,
                           "prefill": swa_timing(gen, b * cfg.n_heads, s,
-                                                cfg.d_head, bf16, cfg.n_heads)},
+                                                cfg.d_head, bf16, cfg.n_heads),
+                          "prefill_f32": swa_timing(gen, b * cfg.n_heads, s,
+                                                    cfg.d_head, f32, cfg.n_heads)},
         "fused_sgd_update": {"max_abs_err": sgd_err,
                              "train": sgd_timing(gen, n_resnet)},
     }
@@ -402,7 +411,7 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
 def serve_phase(cfg, params) -> dict:
     # warm-up at a tiny length (cuBLAS handles, allocator), not counted
     serve(cfg, batch=SERVE["batch"], prompt_len=4, new_tokens=2,
-          params=params, device=DEVICE)
+          params=params, device=DEVICE, log=False)
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     tokens, seconds, last = serve(cfg, params=params, device=DEVICE,
@@ -881,7 +890,14 @@ def main() -> int:
             "launches_per_prefill": prefilled["launches"][name],
             "max_abs_err": k["max_abs_err"],
             **k["prefill"], "kernel_ms": k["prefill"]["ms"],  # the issue's name
-            **({"at_decode": k["decode"]} if "decode" in k else {})})
+            **({"at_decode": k["decode"]} if "decode" in k else {}),
+            # the other dtype's route, and the design of each route timed
+            # as the built library reports it
+            **({"f32": k["prefill_f32"],
+                "design": {str(dt).removeprefix("torch."):
+                           swa_kernel.design(dt, cfg.d_head)
+                           for dt in swa_kernel.KERNELS}}
+               if name == "swa_attention" else {})})
     k = kernels["fused_sgd_update"]
     train_steps = sum(n for _, n in TRAIN_SEGMENTS)
     entries.append({

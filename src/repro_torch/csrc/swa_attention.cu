@@ -2,39 +2,75 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/swa_attention.py:81
 // `swa_attention` (body `_kernel` at :27). q, k, v: [BH, S, D] in bf16 or
-// f32, output in q's dtype. softmax(q k^T / sqrt(D)) v with key j visible to
-// query i iff (not causal or j <= i) and (no window or j > i - window).
-// As on the TPU, every product runs in f32 (q, k, v are widened on load) and
-// the online-softmax state m, l, acc is f32.
+// f32, D in {32, 64, 80, 128, 256}, output in q's dtype. softmax(q k^T /
+// sqrt(D)) v with key j visible to query i iff (not causal or j <= i) and
+// (no window or j > i - window). The online-softmax state m, l, acc is f32.
 //
 // Bound on the H100: at the prefill shape (BH 32, S 1024, D 128, causal) the
-// inputs and output are 33.5 MB (10 us at 3.35 TB/s) and the band needs
-// 8.6 GFLOP (8.7 us at the bf16 tensor-core peak), so the least time is set
-// by the bytes. This first kernel does its products in f32 on the CUDA
-// cores (67 TFLOP/s peak, no wgmma), so in practice the FMA rate and the
-// shared-memory traffic that feeds it bound it, far above that least time.
+// inputs and output are 33.5 MB (10.0 us at 3.35 TB/s) and the band needs
+// 8.6 GFLOP (8.7 us at the 989 TFLOP/s bf16 tensor-core peak): bytes and
+// operations bound it about equally, so the kernel must stream K/V from L2
+// while the tensor cores stay busy.
 //
-// Design: one block of 128 threads per (bh, 32-row q tile). The q tile and
-// each 32-row K/V tile are staged in shared memory as f32; rows past S are
-// zero-filled and masked, so a ragged S needs no padding. Each q tile loops
-// only over the k tiles of its band: from the first key its window reaches
-// (q_lo - window + 1) to the last key its causal limit reaches (q_hi). The
-// TPU kernel visits every k block and skips work under pl.when; here the
-// tiles outside the band are never loaded. Per k tile:
-//   scores: warp w owns rows w, w+4, ..., w+28 and lane j owns key j, so a
-//     row's max and sum are warp shuffles; m and l live in registers.
-//   P.V: thread t owns a fixed set of output columns and rows; acc stays in
-//     registers (at most 64 floats, D = 256) and is rescaled by alpha.
-// Q and K rows are padded to D + 4 floats: 16-byte loads stay aligned and
-// the 32 lanes reading 32 different K rows hit distinct banks.
-// Shared memory is 54.5 KB at D = 128 and 103.7 KB at D = 256; both are
-// above the 48 KB static limit and opted into with cudaFuncSetAttribute.
+// Two kernels, chosen by dtype (the wrapper says which):
+//
+// bf16: tensor cores (`swa_attention_mma_kernel`). One block of 4 warps per
+//   (bh, 64-row q tile); warp w owns q rows 16w..16w+15 as one m16 tile.
+//   Q.K^T and P.V are mma.sync.m16n8k16 bf16 products with f32 accumulators
+//   in registers (the FA2 register layout): the scores of a 64-key tile are
+//   8 m16n8 fragments, which become P's A fragments in place; ldmatrix feeds
+//   Q and K, ldmatrix.trans feeds V. Q (D <= 128) is read into registers
+//   once; at D = 256 it is re-read from shared memory per tile to leave the
+//   registers to the 128-float output accumulator. The softmax folds
+//   log2(e)/sqrt(D) into one scale for exp2f; row max is a quad shuffle,
+//   row sums stay per thread until the end. P is split into bf16 hi + lo
+//   halves (p to about 16 bits; FA2 and SDPA round it to 8): both multiply
+//   the same V fragments, which costs a third more MMAs and no shared-memory
+//   traffic. Rounded to bf16 alone, P moved the full-depth prefill's argmax
+//   agreement with the plain version below its 0.95 gate.
+//   K/V tiles of 64 keys go through a 2-stage cp.async ring in shared
+//   memory, the next tile's copy overlapping this tile's math; all data
+//   stays bf16 in shared memory, rows padded to D + 8 elements (16 bytes)
+//   so that the 8 rows of each ldmatrix hit distinct banks at every D,
+//   80 included (its 160-byte rows need no swizzle box). Rows and keys
+//   past S are zero-filled by cp.async and masked: a ragged S needs no
+//   padding. Each q tile visits only the k tiles of its band,
+//   [q_lo - window + 1, q_hi]; a warp skips a tile none of its rows can
+//   see, and masks elements only on tiles that straddle the diagonal, the
+//   window edge or S. The grid launches the last (causally heaviest) q
+//   tiles first. Shared memory: (64 + 2 * 2 * 64) * (D + 8) * 2 bytes,
+//   87 KB at D = 128 and 169 KB at D = 256, opted into with
+//   cudaFuncSetAttribute; 128 threads, __launch_bounds__(128, 2).
+//   Registers (-O3, sm_90a): 210 at D = 128 without spills, 255 with 24
+//   bytes spilled at D = 256; so two blocks, 8 warps, per SM (one at
+//   D = 256). Two small blocks ran faster than one of 128 rows and 8 warps
+//   (PERF.md), for twice the K/V reads from L2: a block's barrier holds 4
+//   warps, not 8, so the two blocks of an SM can be in different phases.
+//   What bounds it is latency, as far as the measurements show: 2 warps
+//   per SM sub-partition, and the tensor-core, shared-memory and softmax
+//   phases of a warp's tile do not overlap. wgmma with warp-specialised
+//   loads is the next step.
+//
+// f32: CUDA cores (`swa_attention_kernel`), kept because TF32 tensor cores
+//   cannot hold the reference's f32 tolerance (2e-5). One block of 128
+//   threads per (bh, 32-row q tile); the q tile and each 32-row K/V tile
+//   are staged in shared memory as f32, rows past S zero-filled and masked;
+//   each q tile loops over the k tiles of its band only. Scores: warp w
+//   owns rows w, w+4, ..., w+28 and lane j owns key j, so a row's max and
+//   sum are warp shuffles. P.V: thread t owns a fixed set of output columns
+//   and rows; acc stays in registers (at most 64 floats, D = 256). Q and K
+//   rows are padded to D + 4 floats. Shared memory is 54.5 KB at D = 128
+//   and 103.7 KB at D = 256.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+// ------------------------------------------------------ f32 on CUDA cores --
 
 constexpr int BQ = 32;   // query rows per block
 constexpr int BK = 32;   // keys per tile (one per lane)
@@ -248,23 +284,374 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh,
   return cudaGetLastError();
 }
 
+// The design fields of swa_attention_design, for this kernel as built.
+inline cudaError_t describe(const void* kernel, int q_rows, int kv_keys, int stages, int warps,
+                            size_t smem, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  const int fields[] = {q_rows, kv_keys, stages, warps, static_cast<int>(smem), a.numRegs,
+                        static_cast<int>(a.localSizeBytes)};
+  for (int i = 0; i < 7; ++i) out[i] = fields[i];
+  return cudaSuccess;
+}
+
+template <typename T, int D>
+cudaError_t design(int* out) {
+  return describe(reinterpret_cast<const void*>(swa_attention_kernel<T, D>), BQ, BK, 1, WARPS,
+                  Shape<D>::SMEM_FLOATS * sizeof(float), out);
+}
+
+// ------------------------------------------------- bf16 on tensor cores --
+namespace mma {
+
+constexpr int BQ = 64;         // q rows per block
+constexpr int BKV = 64;        // keys per K/V tile
+constexpr int WARPS = 4;       // warp w owns q rows 16w..16w+15
+constexpr int NT = 32 * WARPS;
+constexpr int STAGES = 2;      // K/V ring depth
+constexpr float LOG2E = 1.4426950408889634f;
+
+using bf16 = __nv_bfloat16;
+
+template <int D>
+struct Shape {
+  static_assert(D % 16 == 0 && D <= 256, "D must be a multiple of 16, at most 256");
+  static constexpr int LD = D + 8;           // smem row stride (elements)
+  static constexpr int KD = D / 16;          // k-steps of Q.K^T
+  static constexpr int ND = D / 8;           // n-tiles of the output
+  static constexpr int NS = BKV / 8;         // n-tiles of the scores
+  static constexpr bool Q_IN_REGS = D <= 128;
+  static constexpr int Q_ELEMS = BQ * LD;
+  static constexpr int KV_ELEMS = BKV * LD;
+  static constexpr size_t SMEM_BYTES = (Q_ELEMS + 2 * STAGES * KV_ELEMS) * sizeof(bf16);
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zero-filled (nothing read) when !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x0, x1) as two bf16 pairs, hi = bf16(x) and lo = bf16(x - hi): hi + lo
+// holds x to about 16 bits.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// Rows [row0, row0 + NROWS) of a [S, D] matrix into shared memory with row
+// stride LD, by cp.async; rows at or past s are zero-filled.
+template <int D, int NROWS>
+__device__ __forceinline__ void load_rows(const bf16* __restrict__ src, int row0, int s,
+                                          bf16* __restrict__ dst) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  for (int c = threadIdx.x; c < NROWS * CPR; c += NT) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const bool ok = row0 + r < s;
+    cp_async16(dst + r * Shape<D>::LD + col,
+               src + static_cast<int64_t>(ok ? row0 + r : 0) * D + col, ok);
+  }
+}
+
+// The m16n8k16 A fragment of the 16 x 16 block at `tile` of a row-major
+// smem tile with row stride LD.
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int lane) {
+  ldmatrix_x4(a, tile + (((lane >> 3) & 1) * 8 + (lane & 7)) * LD + (lane >> 4) * 8);
+}
+
+template <int D>
+__global__ void __launch_bounds__(NT, 2)
+swa_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ o, int bh, int s,
+                         int n_qt, int causal, int window, float scale_log2) {
+  using Sh = Shape<D>;
+  constexpr int LD = Sh::LD;
+  extern __shared__ float4 smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
+  bf16* Ks = Qs + Sh::Q_ELEMS;                   // [STAGES][BKV][LD]
+  bf16* Vs = Ks + STAGES * Sh::KV_ELEMS;         // [STAGES][BKV][LD]
+
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / bh;  // heaviest first
+  const int b = static_cast<int>(blockIdx.x) % bh;
+  const int q_lo = qt * BQ;
+  const int q_hi = min(q_lo + BQ, s) - 1;
+  const int64_t base = static_cast<int64_t>(b) * s * D;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group, thread in quad
+  const int wq_lo = q_lo + 16 * warp, wq_hi = wq_lo + 15;
+
+  // The band of keys any row of this tile can see.
+  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int k_end = causal ? q_hi + 1 : s;  // exclusive
+  const int kt_first = k_begin / BKV;
+  const int n_kt = (k_end - 1) / BKV - kt_first + 1;
+
+  load_rows<D, BQ>(q + base, q_lo, s, Qs);
+  load_rows<D, BKV>(k + base, kt_first * BKV, s, Ks);
+  load_rows<D, BKV>(v + base, kt_first * BKV, s, Vs);
+  cp_async_commit();
+
+  uint32_t qf[Sh::Q_IN_REGS ? Sh::KD : 1][4];
+  float acc[Sh::ND][4];
+#pragma unroll
+  for (int n = 0; n < Sh::ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, raw scores
+  float l_run[2] = {0.f, 0.f};              // this thread's share of the row sums
+
+  for (int i = 0; i < n_kt; ++i) {
+    const int stage = i % STAGES;
+    const int k_lo = (kt_first + i) * BKV;
+    if (i + 1 < n_kt) {  // the next tile's copy overlaps this tile's math
+      const int nxt = (i + 1) % STAGES;
+      load_rows<D, BKV>(k + base, k_lo + BKV, s, Ks + nxt * Sh::KV_ELEMS);
+      load_rows<D, BKV>(v + base, k_lo + BKV, s, Vs + nxt * Sh::KV_ELEMS);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Kt = Ks + stage * Sh::KV_ELEMS;
+    const bf16* Vt = Vs + stage * Sh::KV_ELEMS;
+    const bf16* Qw = Qs + 16 * warp * LD;
+    if constexpr (Sh::Q_IN_REGS) {
+      if (i == 0) {
+#pragma unroll
+        for (int kk = 0; kk < Sh::KD; ++kk) load_a<LD>(qf[kk], Qw + kk * 16, lane);
+      }
+    }
+
+    // Warp-uniform: does any row of this warp see a key of this tile, and
+    // do all of its rows see all of them?
+    const bool skip = wq_lo >= s || (causal && k_lo > wq_hi) ||
+                      (window > 0 && k_lo + BKV - 1 <= wq_lo - window);
+    if (!skip) {
+      const bool full = k_lo + BKV <= s && (!causal || k_lo + BKV - 1 <= wq_lo) &&
+                        (window <= 0 || k_lo > wq_hi - window);
+
+      // S = Q K^T: 16 rows x 64 keys, 8 fragments of m16n8.
+      float sc[Sh::NS][4];
+#pragma unroll
+      for (int n = 0; n < Sh::NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < Sh::KD; ++kk) {
+        uint32_t a[4];
+        if constexpr (Sh::Q_IN_REGS) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+        } else {
+          load_a<LD>(a, Qw + kk * 16, lane);
+        }
+#pragma unroll
+        for (int nj = 0; nj < Sh::NS / 2; ++nj) {
+          // keys 16nj..16nj+15 at d 16kk..16kk+15: b0, b1 of two n-tiles
+          uint32_t bk[4];
+          ldmatrix_x4(bk, Kt + (nj * 16 + (lane >> 4) * 8 + (lane & 7)) * LD + kk * 16 +
+                              ((lane >> 3) & 1) * 8);
+          mma_bf16(sc[2 * nj], a, bk[0], bk[1]);
+          mma_bf16(sc[2 * nj + 1], a, bk[2], bk[3]);
+        }
+      }
+
+      if (!full) {
+#pragma unroll
+        for (int n = 0; n < Sh::NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = wq_lo + g + (e >> 1) * 8;
+            const int key = k_lo + 8 * n + 2 * t + (e & 1);
+            const bool ok = key < s && (!causal || key <= row) &&
+                            (window <= 0 || key > row - window);
+            if (!ok) sc[n][e] = -INFINITY;
+          }
+      }
+
+      // Online softmax over the two rows this thread holds.
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < Sh::NS; ++n) mx = fmaxf(mx, fmaxf(sc[n][2 * r], sc[n][2 * r + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[r], mx);
+        // no visible key for this row yet: p = 0 and acc, l stay 0
+        const float m_scaled = m_new == -INFINITY ? 0.f : m_new * scale_log2;
+        const float alpha = exp2f(m_run[r] * scale_log2 - m_scaled);
+        m_run[r] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < Sh::NS; ++n) {
+          sc[n][2 * r] = exp2f(fmaf(sc[n][2 * r], scale_log2, -m_scaled));
+          sc[n][2 * r + 1] = exp2f(fmaf(sc[n][2 * r + 1], scale_log2, -m_scaled));
+          sum += sc[n][2 * r] + sc[n][2 * r + 1];
+        }
+        l_run[r] = l_run[r] * alpha + sum;
+#pragma unroll
+        for (int n = 0; n < Sh::ND; ++n) {
+          acc[n][2 * r] *= alpha;
+          acc[n][2 * r + 1] *= alpha;
+        }
+      }
+
+      // acc += P V. P's A fragments are the score fragments, each split
+      // into bf16 hi + lo halves; every V fragment feeds both products.
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* p = &sc[2 * kk + (e >> 1)][(e & 1) * 2];
+          split_bf16(p[0], p[1], hi[e], lo[e]);
+        }
+#pragma unroll
+        for (int dn = 0; dn < D / 16; ++dn) {
+          // keys 16kk..16kk+15 at d 16dn..16dn+15, transposed: b0, b1 of two n-tiles
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, Vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LD +
+                                    dn * 16 + (lane >> 4) * 8);
+          mma_bf16(acc[2 * dn], hi, bv[0], bv[1]);
+          mma_bf16(acc[2 * dn + 1], hi, bv[2], bv[3]);
+          mma_bf16(acc[2 * dn], lo, bv[0], bv[1]);
+          mma_bf16(acc[2 * dn + 1], lo, bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();  // this stage is free for the copy two tiles ahead
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = l_run[r];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = wq_lo + g + 8 * r;
+    if (row >= s) continue;
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+    bf16* out = o + base + static_cast<int64_t>(row) * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < Sh::ND; ++n) {
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
+          __floats2bfloat162_rn(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int s,
+                   int causal, int window, cudaStream_t stream) {
+  const size_t smem = Shape<D>::SMEM_BYTES;
+  cudaError_t err = cudaFuncSetAttribute(swa_attention_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const int n_qt = (s + BQ - 1) / BQ;
+  const long long blocks = static_cast<long long>(n_qt) * bh;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  swa_attention_mma_kernel<D><<<static_cast<unsigned>(blocks), NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), bh, s, n_qt, causal, window,
+      LOG2E / sqrtf(static_cast<float>(D)));
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t design(int* out) {
+  return describe(reinterpret_cast<const void*>(swa_attention_mma_kernel<D>), BQ, BKV, STAGES,
+                  WARPS, Shape<D>::SMEM_BYTES, out);
+}
+
+}  // namespace mma
+
+// bf16 to the tensor-core kernel, f32 to the CUDA-core kernel.
+template <typename T, int D>
+cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* o, int bh, int s,
+                         int causal, int window, cudaStream_t stream) {
+  if constexpr (std::is_same_v<T, float>) {
+    return launch<float, D>(q, k, v, o, bh, s, causal, window, stream);
+  } else {
+    return mma::launch<D>(q, k, v, o, bh, s, causal, window, stream);
+  }
+}
+
+template <typename T, int D>
+cudaError_t design_dtype(int* out) {
+  if constexpr (std::is_same_v<T, float>) {
+    return design<float, D>(out);
+  } else {
+    return mma::design<D>(out);
+  }
+}
+
+template <typename T>
+cudaError_t design_d(int d, int* out) {
+  switch (d) {
+    case 32: return design_dtype<T, 32>(out);
+    case 64: return design_dtype<T, 64>(out);
+    case 80: return design_dtype<T, 80>(out);
+    case 128: return design_dtype<T, 128>(out);
+    case 256: return design_dtype<T, 256>(out);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int bh, int s, int d,
                      int causal, int window, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, bh, s, causal, window, stream);
-    case 64: return launch<T, 64>(q, k, v, o, bh, s, causal, window, stream);
-    case 80: return launch<T, 80>(q, k, v, o, bh, s, causal, window, stream);
-    case 128: return launch<T, 128>(q, k, v, o, bh, s, causal, window, stream);
-    case 256: return launch<T, 256>(q, k, v, o, bh, s, causal, window, stream);
+    case 32: return launch_dtype<T, 32>(q, k, v, o, bh, s, causal, window, stream);
+    case 64: return launch_dtype<T, 64>(q, k, v, o, bh, s, causal, window, stream);
+    case 80: return launch_dtype<T, 80>(q, k, v, o, bh, s, causal, window, stream);
+    case 128: return launch_dtype<T, 128>(q, k, v, o, bh, s, causal, window, stream);
+    case 256: return launch_dtype<T, 256>(q, k, v, o, bh, s, causal, window, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q, k, v, o: [bh, s, d] contiguous, 16-byte aligned. dtype: 0 = float32,
-// 1 = bfloat16. window <= 0 means no window. Returns the launch's cudaError_t.
+// q, k, v, o: [bh, s, d] contiguous, 16-byte aligned. dtype: 0 = float32
+// (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel). window <= 0 means
+// no window. Returns the launch's cudaError_t.
 extern "C" int swa_attention_launch(const void* q, const void* k, const void* v, void* o, int bh,
                                     int s, int d, int causal, int window, int dtype,
                                     void* stream) {
@@ -274,6 +661,18 @@ extern "C" int swa_attention_launch(const void* q, const void* k, const void* v,
     case 0: return static_cast<int>(launch_d<float>(q, k, v, o, bh, s, d, causal, window, st));
     case 1:
       return static_cast<int>(launch_d<__nv_bfloat16>(q, k, v, o, bh, s, d, causal, window, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The design of the kernel that runs `dtype` (as in swa_attention_launch) at
+// head dim d, as built: out[0..6] = q rows per block, keys per K/V tile, K/V
+// ring stages, warps per block, dynamic shared-memory bytes, registers per
+// thread, local-memory (spill) bytes per thread. Returns a cudaError_t.
+extern "C" int swa_attention_design(int dtype, int d, int* out) {
+  switch (dtype) {
+    case 0: return static_cast<int>(design_d<float>(d, out));
+    case 1: return static_cast<int>(design_d<__nv_bfloat16>(d, out));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

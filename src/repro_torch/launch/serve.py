@@ -22,12 +22,15 @@ from repro_torch.models.registry import build_model, decode_window
 
 
 def serve(cfg, *, batch: int, prompt_len: int, new_tokens: int,
-          params=None, device="cuda", generator: torch.Generator | None = None,
-          return_logits: bool = False):
+          params=None, greedy: bool = True, log: bool = True, device="cuda",
+          generator: torch.Generator | None = None, return_logits: bool = False):
     """Greedy-decode ``new_tokens`` after TokenStream(seed=3) prompts.
 
     params: the port's parameter tree on ``device``, or None for random
     weights drawn from ``generator`` (default: seed 0 on ``device``).
+    ``greedy`` and ``log`` are the reference's: decoding always takes the
+    argmax, as in the reference, whatever ``greedy`` says; ``log`` prints
+    the ``generated ... tok/s`` line.
     Returns (tokens [batch, new_tokens] int32 numpy, seconds), and with
     ``return_logits`` also the last decode step's logits [batch, 1, vocab].
     """
@@ -65,6 +68,9 @@ def serve(cfg, *, batch: int, prompt_len: int, new_tokens: int,
             break
     gen = torch.cat(out_tokens[1:], dim=1).cpu().numpy()
     seconds = time.perf_counter() - t0
+    if log:
+        print(f"generated {gen.shape} in {seconds:.2f}s "
+              f"({batch * new_tokens / seconds:.1f} tok/s)")
     return (gen, seconds, logits) if return_logits else (gen, seconds)
 
 
@@ -80,8 +86,6 @@ def main(argv=None):
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     gen, dt = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
                     new_tokens=args.new_tokens, device=args.device)
-    print(f"generated {gen.shape} in {dt:.2f}s "
-          f"({args.batch * args.new_tokens / dt:.1f} tok/s)")
     print("sample:", gen[0][:16])
 
 

@@ -30,7 +30,13 @@ SWA_CASES = [
     (3, 128, 128, None, False),
     (1, 130, 32, 64, True),          # ragged S
     (2, 64, 256, 32, True),          # gemma-style d=256
+    (2, 1000, 128, None, True),      # ragged S at the prefill's D
+    (2, 333, 80, 100, True),         # danube's D = 80, ragged S, a window
+    (1, 64, 256, None, True),        # S within one tile at D = 256
 ]
+# On the card only: many band-skipped tiles, a window that is a multiple
+# of no tile (too slow for the reference's interpret mode on the CPU).
+SWA_CUDA_ONLY = [(4, 2048, 128, 512, True), (2, 200, 80, None, True)]
 RMS_CASES = [(4, 128, 512), (1, 7, 64), (300, 1024), (2, 2048)]
 
 
@@ -175,6 +181,53 @@ def test_fused_update_in_place_on_offset_views():
         assert not b[:off].any() and not b[off + 1001:].any()
 
 
+def _call_wrapper(call, x, w):
+    if call == "rmsnorm":
+        return rms_kernel.rmsnorm(x, w)
+    return swa_kernel.swa_attention(x, x, x)
+
+
+@pytest.mark.parametrize("call,needs_grad", [("rmsnorm", "x"), ("rmsnorm", "w"),
+                                             ("swa_attention", "x")])
+def test_kernel_wrappers_refuse_inputs_that_require_grad(call, needs_grad):
+    """The kernels have no backward: with grad mode on, an input that
+    requires grad is refused (before the device check) rather than cut out
+    of the graph; under no_grad the same inputs pass that check."""
+    x, w = torch.zeros(2, 64, 32), torch.zeros(32)
+    (x if needs_grad == "x" else w).requires_grad_()
+    before = ops.launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        _call_wrapper(call, x, w)
+    with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+        _call_wrapper(call, x, w)
+    assert ops.launch_counts() == before
+
+
+@pytest.mark.parametrize("call", ["rmsnorm", "swa_attention"])
+def test_plain_versions_still_give_gradients_on_cpu(call):
+    """On CPU tensors ops.rmsnorm and ops.swa_attention run the plain
+    versions, which autograd differentiates: the gradients of
+    sum(out * cotangent) against jax.grad of the reference's plain
+    versions, in f32."""
+    rng = np.random.default_rng(4)
+    if call == "rmsnorm":
+        args = [rng.standard_normal((2, 8, 16), dtype=np.float32),
+                rng.standard_normal(16, dtype=np.float32) * 0.1]
+        port = lambda x, w: ops.rmsnorm(x, w)
+        jax_fn = lambda x, w: jref.rmsnorm_ref(x, w)
+    else:
+        args = _swa_inputs(2, 12, 16, 4)
+        port = lambda q, k, v: ops.swa_attention(q, k, v, window=5)
+        jax_fn = lambda q, k, v: jref.swa_attention_ref(q, k, v, window=5)
+    cot = rng.standard_normal(args[0].shape, dtype=np.float32)
+    tensors = [torch.from_numpy(a).requires_grad_() for a in args]
+    (port(*tensors) * torch.from_numpy(cot)).sum().backward()
+    want = jax.grad(lambda *a: (jax_fn(*a) * cot).sum(),
+                    argnums=tuple(range(len(args))))(*map(jnp.asarray, args))
+    for t, w in zip(tensors, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=1e-4, atol=1e-5)
+
+
 @pytest.mark.parametrize("call", ["rmsnorm", "swa_attention", "fused_sgd_update"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A kernel wrapper launches on CUDA tensors only; it never runs the
@@ -191,6 +244,16 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
     assert ops.launch_counts() == before
 
 
+@pytest.mark.parametrize("dtype,d,error", [(torch.float16, 128, TypeError),
+                                            (torch.bfloat16, 48, ValueError),
+                                            (torch.float32, 512, ValueError)])
+def test_swa_design_refuses_what_no_kernel_runs(dtype, d, error):
+    """The design query checks dtype and head dim before it loads (and on
+    a GPU machine builds) the library."""
+    with pytest.raises(error):
+        swa_kernel.design(dtype, d)
+
+
 # ----------------------------------------------------------- on the GPU ----
 @pytest.fixture
 def cuda():
@@ -201,8 +264,7 @@ def cuda():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("bh,s,d,window,causal",
-                         SWA_CASES + [(2, 200, 80, None, True)])  # danube d=80
+@pytest.mark.parametrize("bh,s,d,window,causal", SWA_CASES + SWA_CUDA_ONLY)
 def test_swa_attention_kernel_matches_plain(cuda, bh, s, d, window, causal,
                                             dtype):
     tdt = DTYPES[dtype][1]
@@ -216,6 +278,37 @@ def test_swa_attention_kernel_matches_plain(cuda, bh, s, d, window, causal,
     tol = 2e-5 if dtype == "float32" else 2e-2
     np.testing.assert_allclose(as_f32(got), as_f32(want),
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 80, 128, 256])
+def test_swa_design_is_read_from_the_built_kernels(cuda, d):
+    bf16 = swa_kernel.design(torch.bfloat16, d)
+    assert bf16["kernel"] == "swa_attention_mma_kernel"
+    # Q tile plus a K and a V tile per ring stage, rows padded to D + 8
+    assert bf16["smem_bytes"] == (bf16["q_rows"] + 2 * bf16["stages"]
+                                  * bf16["kv_keys"]) * (d + 8) * 2
+    assert 0 < bf16["registers"] <= 255
+    if d <= 128:
+        assert bf16["local_bytes"] == 0
+    f32 = swa_kernel.design(torch.float32, d)
+    assert f32["kernel"] == "swa_attention_kernel" and f32["stages"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("call", ["rmsnorm", "swa_attention"])
+def test_kernel_wrappers_refuse_grad_on_cuda(cuda, call):
+    x = torch.zeros(2, 64, 32, device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros(32, device=cuda).requires_grad_()
+    if call == "swa_attention":
+        x.requires_grad_()
+    n = ops.launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        (ops.rmsnorm(x, w) if call == "rmsnorm" else ops.swa_attention(x, x, x))
+    assert ops.launch_counts() == n
+    with torch.no_grad():
+        out = ops.rmsnorm(x, w) if call == "rmsnorm" else ops.swa_attention(x, x, x)
+    assert out.grad_fn is None and ops.launch_counts()[call] == n[call] + 1
 
 
 @pytest.mark.cuda

@@ -61,7 +61,27 @@ def test_serve_returns_last_step_logits():
 def test_serve_cli_on_cpu(capsys):
     main(["--arch", "gemma-2b", "--smoke", "--batch", "2", "--prompt-len", "6",
           "--new-tokens", "3", "--device", "cpu"])
-    assert "generated (2, 3)" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert out.count("generated (2, 3)") == 1  # printed by serve, once
+
+
+def test_serve_takes_the_reference_keywords(capsys):
+    """greedy and log as in repro.launch.serve.serve: log=False prints
+    nothing, log=True prints the reference's line, and greedy=True (the
+    reference's only mode) leaves the tokens as they are."""
+    cfg = get_smoke_config("qwen2.5-3b")
+    kw = dict(batch=2, prompt_len=6, new_tokens=3, device="cpu")
+    want, _ = serve(cfg, **kw)
+    capsys.readouterr()
+    quiet, _ = serve(cfg, log=False, **kw)
+    assert capsys.readouterr().out == ""
+    loud, seconds = serve(cfg, greedy=True, log=True, **kw)
+    line = capsys.readouterr().out
+    assert line.startswith("generated (2, 3) in ") and line.endswith(" tok/s)\n")
+    assert line == (f"generated (2, 3) in {seconds:.2f}s "
+                    f"({2 * 3 / seconds:.1f} tok/s)\n")
+    for got in (quiet, loud):
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("step", [0, 5])
