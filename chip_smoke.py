@@ -30,16 +30,32 @@
    chance; then the kernel against the plain version on one set of the
    trained state's gradients, one train step's loss and gradient on the
    card against the same step in f32 on the CPU, an exact-resume check
-   (5 + 5 steps against 10) and a profile of the train step.
+   (5 + 5 steps against 10) and a profile of the train step;
+7. dp phase: data-parallel ResNet-110 at full size through
+   ``launch.explicit_allreduce``: 4 ranks, each its own process with its
+   own CUDA context on the one card, 128 images each (global batch 512,
+   LR 1.2e-3 by eq. 7), 5 steps under each of psum, ring and
+   doubling_halving from one seeded init on the same batches, then 3 ranks
+   under ring. The ranks exchange gradients over gloo through pinned host
+   memory (transport "gloo-host"): every exchange time here is a host
+   loopback time, not an all-reduce number of the card. Gates: ring and
+   halving-doubling leave every rank with rank 0's bits; one
+   fused_sgd_update launch per rank per step; each rank's update p5 - p0
+   agrees with the one-process train step at the global batch, and two
+   faulty exchanges built here (the sum not divided by w; the all-gather
+   skipped) fail that gate; the first step's exchanged gradients agree
+   with dist.all_reduce's.
 
 Launch counts are set to 0 just before the serve, the prefill and the
-training runs and read just after. Any failed check raises, and the script exits non-zero.
+training runs and read just after; each dp rank does the same around its
+steps under each algorithm. Any failed check raises, and the script exits non-zero.
 The last two lines are the kernels' JSON line and the device line. It
 exits non-zero, printing no result, when there is no CUDA device.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -64,10 +80,13 @@ from repro_torch.core.elastic import ElasticTrainer  # noqa: E402
 from repro_torch.data.synthetic import CifarLike, TokenStream  # noqa: E402
 from repro_torch.engine.steps import (make_decode_step, make_prefill,  # noqa: E402
                                       make_train_step, value_and_flat_grad)
+from repro_torch.collectives import dist as cdist  # noqa: E402
+from repro_torch.engine import steps as steps_module  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import fused_update as sgd_kernel  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
 from repro_torch.kernels import swa_attention as swa_kernel  # noqa: E402
+from repro_torch.launch import explicit_allreduce as dp  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import spec as pspec  # noqa: E402
 from repro_torch.models.registry import build_model, decode_window  # noqa: E402
@@ -137,6 +156,30 @@ STEP_LIMITS = {"gpu_f32": {"loss_rel_err": 1e-5, "flat_rel_err": 1e-2,
 DECODE_AGREE_MIN = 0.90
 CONTROL_POSITIONS = 128
 CONTROL_FAULTS = ("pos_lag", "no_cache")
+# Data parallel: the train phase's first segment (w = 4, 128 images per
+# worker, base LR 3e-4) as 4 processes, then 3 under ring. ResNet-110's
+# 1,727,962 parameters are a multiple of neither 3 nor 4, so both pad.
+DP = dp.DPRun(world=4, steps=5, m_per_worker=TRAIN["m_per_worker"],
+              base_lr_1w=TRAIN["base_lr_1w"], timeout_s=180)
+DP_W3 = dataclasses.replace(DP, world=3, algorithms=("ring",))
+# Each rank's update p5 - p0 against the one-process step at the global
+# batch: relative L2 error below DP_UPDATE_LIMIT. Set before the first run
+# from this reasoning: per image the forward and backward are the same
+# bf16 computations in both; what differs is where the batch sum is
+# rounded (each rank's bf16 weight gradient over 128 images, summed in
+# f32, against one bf16 rounding over 512) and cuDNN's choice of
+# algorithm at 128 and 512 images, about 2^-9 per element, so 0.003-0.01
+# is expected after 5 steps. A faulty exchange is far off: the sum not
+# divided by w gives an error of w - 1 = 3; the all-gather skipped leaves
+# each rank its own segment of the sum and partial sums elsewhere, 0.47
+# even if every rank had the same gradient. The limit sits 10x above the
+# expectation and 4.7x below the nearer control.
+DP_UPDATE_LIMIT = 0.1
+# An f32 limit for sums of the same 4 f32 terms in another order (first
+# step's exchanged gradient against dist.all_reduce's, and psum's ranks
+# against each other): max |a - b| / max |b|.
+DP_F32_LIMIT = 1e-5
+DP_FAULTS = ("not_divided", "no_all_gather")
 
 
 def check(ok: bool, what: str) -> None:
@@ -835,6 +878,135 @@ def train_phase() -> dict:
     return out
 
 
+# ------------------------------------------------------- data parallel --
+def _not_divided(x, group=None, algorithm="ring"):
+    """Faulty exchange (a): the step's division by w is undone, so the
+    update uses the sum of the ranks' gradients."""
+    cdist.allreduce_(x, group, algorithm)
+    return x.mul_(torch.distributed.get_world_size(group))
+
+
+def _no_all_gather(x, group=None, algorithm="ring"):
+    """Faulty exchange (b): the ring's reduce-scatter without its
+    all-gather; each rank keeps its own segment of the sum and partial
+    sums elsewhere."""
+    w = torch.distributed.get_world_size(group)
+    r = torch.distributed.get_rank(group)
+    n = x.numel()
+    buf = torch.zeros(n + (-n) % w, pin_memory=x.is_cuda)
+    buf[:n].copy_(x)
+    cdist._ring_reduce_scatter(buf, w, r, group)
+    return x.copy_(buf[:n])
+
+
+def faulty_rank(rank, run, init_method, out_dir):
+    """A dp rank whose train step exchanges through each faulty exchange
+    in turn (a test double: the package has no switch for it)."""
+    dev = dp.join(rank, run, init_method)
+    try:
+        out = {}
+        for fault in DP_FAULTS:
+            steps_module.allreduce_ = globals()[f"_{fault}"]
+            out[fault] = dp.train(rank, run, dev)["algorithms"]["ring"]["params"]
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def one_process_update(spec) -> tuple[torch.Tensor, torch.Tensor]:
+    """The init p0 and the update p5 - p0 of the one-process train step at
+    the global batch of ``spec`` (same init, batches and LR), on the host."""
+    dev = torch.device(DEVICE)
+    state = spec.initial_state(dev)
+    p0 = state["params"].flat.clone()
+    step = make_train_step(spec.model(), sgd(), device=dev)
+    for batch in spec.batches():
+        state, _ = step(state, batch, spec.lr)
+    return p0.cpu(), (state["params"].flat - p0).cpu()
+
+
+def update_err(params: torch.Tensor, p0: torch.Tensor, want: torch.Tensor) -> float:
+    got = params.double() - p0.double()
+    return float((got - want.double()).norm() / want.double().norm())
+
+
+def dp_phase(smi: str) -> dict:
+    t0 = time.perf_counter()
+    ranks = {spec.world: dp.run(spec) for spec in (DP, DP_W3)}
+    t_ranks = time.perf_counter() - t0
+    controls = dp.spawn(faulty_rank, DP.world,
+                        (dataclasses.replace(DP, algorithms=("ring",)),),
+                        DP.timeout_s * 4)
+    t_controls = time.perf_counter() - t0 - t_ranks
+    out = {"label": "times: host clock, gloo over host memory with CUDA<->pinned "
+                    "staging, all ranks sharing one card; not an all-reduce "
+                    "number of the card", "card": smi, "runs": {}}
+    for spec in (DP, DP_W3):
+        p0, want = one_process_update(spec)
+        rs = ranks[spec.world]
+        summary = dp.summary(spec, rs)
+        for alg in spec.algorithms:
+            a = summary["algorithms"][alg]
+            a["update_rel_err_vs_one_process"] = [
+                update_err(r["algorithms"][alg]["params"], p0, want) for r in rs]
+            a["psum_ranks_max_rel_diff"] = max(
+                float((r["algorithms"][alg]["params"] - rs[0]["algorithms"][alg]["params"]
+                       ).abs().max()) / float((rs[0]["algorithms"][alg]["params"] - p0
+                                               ).abs().max()) for r in rs)
+        summary["init_digest_one_process"] = dp.digest(p0)
+        summary["init_digests"] = [r["init_digest"] for r in rs]
+        if spec.world == DP.world:
+            summary["controls_update_rel_err"] = {
+                fault: [update_err(c[fault], p0, want) for c in controls]
+                for fault in DP_FAULTS}
+        out["runs"][f"w{spec.world}"] = summary
+    out["seconds"] = {"ranks": t_ranks, "controls": t_controls,
+                      "total": time.perf_counter() - t0}
+    out["launches"] = sum(r["algorithms"][alg]["launches"]["fused_sgd_update"]
+                          for rs in ranks.values() for r in rs
+                          for alg in r["algorithms"])
+    for key, summary in out["runs"].items():
+        for alg, a in summary["algorithms"].items():
+            print(f"dp {key} {alg:16s} step {a['step_ms_median']:.1f} ms, exchange "
+                  f"{a['exchange_ms_median']:.2f} ms (host clock, gloo over host "
+                  f"memory, staging included; {summary['transport']}), "
+                  f"{a['bytes_sent_per_rank']} bytes sent per rank and step, "
+                  f"ranks bit-identical {a['ranks_bit_identical']}, peak memory "
+                  f"per rank {a['peak_memory_bytes']} [{smi}]", flush=True)
+    print("dp phase: " + json.dumps(out), flush=True)
+
+    for spec in (DP, DP_W3):
+        summary, rs = out["runs"][f"w{spec.world}"], ranks[spec.world]
+        check(summary["same_init"] and summary["init_digests"][0]
+              == summary["init_digest_one_process"],
+              f"dp w={spec.world}: one init on every rank and in the parent")
+        check(summary["transport"] == "gloo-host", f"transport {summary['transport']}")
+        for alg, a in summary["algorithms"].items():
+            where = f"dp w={spec.world} {alg}"
+            if alg == "psum":
+                check(a["psum_ranks_max_rel_diff"] <= DP_F32_LIMIT,
+                      f"{where}: ranks differ by {a['psum_ranks_max_rel_diff']}")
+            else:
+                check(a["ranks_bit_identical"], f"{where}: ranks' parameters differ")
+            for r in rs:
+                got = r["algorithms"][alg]["launches"]
+                check(got == {"rmsnorm": 0, "swa_attention": 0,
+                              "fused_sgd_update": spec.steps},
+                      f"{where}: rank {r['rank']} launches {got}")
+                check(all(math.isfinite(l) for l in r["algorithms"][alg]["losses"]),
+                      f"{where}: losses finite")
+            errs = a["update_rel_err_vs_one_process"]
+            check(max(errs) < DP_UPDATE_LIMIT,
+                  f"{where}: update vs one process {errs} >= {DP_UPDATE_LIMIT}")
+            check(a["max_rel_err_vs_psum"] <= DP_F32_LIMIT,
+                  f"{where}: first-step exchange vs dist.all_reduce "
+                  f"{a['max_rel_err_vs_psum']} > {DP_F32_LIMIT}")
+    for fault, errs in out["runs"][f"w{DP.world}"]["controls_update_rel_err"].items():
+        check(max(errs) >= DP_UPDATE_LIMIT,
+              f"faulty exchange {fault} passed the update gate: {errs}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels need an NVIDIA GPU",
@@ -874,6 +1046,9 @@ def main() -> int:
     print(f"serving phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
     trained = train_phase()
     print(f"train phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    torch.cuda.empty_cache()  # the dp ranks share the card
+    data_parallel = dp_phase(smi)
+    print(f"dp phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     tpu = {"rmsnorm": "src/repro/kernels/rmsnorm.py:25",
            "swa_attention": "src/repro/kernels/swa_attention.py:81",
@@ -905,8 +1080,12 @@ def main() -> int:
         "source": "src/repro_torch/csrc/fused_sgd_update.cu",
         "replaces": tpu["fused_sgd_update"],
         "tpu_counterpart": f"{tpu['fused_sgd_update']} fused_sgd_update",
-        "launches": trained["launches"]["fused_sgd_update"],
+        "launches": trained["launches"]["fused_sgd_update"] + data_parallel["launches"],
+        "launches_train": trained["launches"]["fused_sgd_update"],
         "launches_per_train_step": trained["launches"]["fused_sgd_update"] / train_steps,
+        "launches_dp": data_parallel["launches"],  # all ranks, all algorithms
+        "launches_per_dp_rank_step": data_parallel["launches"] / sum(
+            spec.world * spec.steps * len(spec.algorithms) for spec in (DP, DP_W3)),
         "max_abs_err": k["max_abs_err"], **k["train"], "kernel_ms": k["train"]["ms"]})
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on the main path")

@@ -9,8 +9,9 @@ batch size, exactly as the paper describes.  Stop and restart costs are
 measured, not assumed.
 
 As in the reference, the w workers are one process: a segment at w trains
-on a global batch of m*w on one device, with no collective. The explicit
-all-reduce between processes is the collectives slice (see ROADMAP.md).
+on a global batch of m*w on one device, with no collective. Training with
+w processes that exchange gradients through the paper's all-reduce is
+``launch.explicit_allreduce``.
 """
 from __future__ import annotations
 

@@ -2,15 +2,16 @@
 model (torch twin of ``repro.engine.steps``).
 
 They run on the GPU unless the caller passes ``device="cpu"``: with no GPU
-and no ``device="cpu"`` they raise. The train step runs in one process;
-the explicit gradient exchange (``grad_exchange``) comes with the
-collectives slice and gradient accumulation (``microbatches``) after it
-(see ROADMAP.md).
+and no ``device="cpu"`` they raise. The train step accumulates gradients
+over microbatches and, in data-parallel runs, exchanges them with the
+paper's all-reduce (``collectives.dist``) over a process group.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.collectives.dist import ALGORITHMS, allreduce_
 from repro_torch.models.layers import NO_SHARD, Sharder
 from repro_torch.models.spec import FlatTree, flatten, unflatten
 from repro_torch.optim.optimizers import Optimizer
@@ -84,31 +85,68 @@ def value_and_flat_grad(model, params: FlatTree, batch: dict,
 
 def make_train_step(model, optimizer: Optimizer, sh: Sharder = NO_SHARD,
                     grad_exchange: str | None = None, microbatches: int = 1,
-                    device="cuda"):
+                    group=None, device="cuda"):
     """(state {params, opt}, batch, lr) -> (state, loss).
 
     The parameters and optimizer state are updated in place (one fused
     kernel launch on the GPU) and the same state is returned; the loss is
     a 0-d tensor, read by the caller only when it needs the value.
+
+    microbatches > 1: gradient accumulation. The batch's leading axis is
+    split into k consecutive microbatches; their flat gradients are summed
+    into one f32 buffer and divided by k, and the loss is the mean of the
+    k losses.
+
+    grad_exchange: None (one process), or "ring", "doubling_halving" or
+    "psum": the accumulated gradient is all-reduced over ``group`` (None:
+    the world) in place and divided by the group's size before the
+    update. The step returns this rank's local loss, as the reference's
+    does.
     """
     if grad_exchange is not None:
-        raise NotImplementedError(
-            f"grad_exchange={grad_exchange!r}: the explicit all-reduce comes "
-            "with the collectives slice (see ROADMAP.md)")
-    if microbatches != 1:
-        raise NotImplementedError(
-            f"microbatches={microbatches}: gradient accumulation is not "
-            "ported yet (see ROADMAP.md)")
+        if grad_exchange not in ALGORITHMS:
+            raise ValueError(f"unknown grad_exchange {grad_exchange!r}; expected "
+                             f"None or one of {sorted(ALGORITHMS)}")
+        if not dist.is_initialized():
+            raise RuntimeError(
+                f"grad_exchange={grad_exchange!r} needs an initialised "
+                "torch.distributed process group (launch.mesh.init_data_group)")
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be at least 1, got {microbatches}")
     dev = resolve_device(device)
-    grads = None  # the flat gradient buffer, made at the first step
+    grads = part = None  # flat gradient buffers, made at the first step
+
+    def accumulate(params, batch):
+        k = microbatches
+        b = len(next(iter(batch.values())))
+        if b % k:
+            raise ValueError(f"a batch of {b} rows does not split into "
+                             f"{k} microbatches")
+        m, lsum = b // k, 0.0
+        grads.zero_()
+        for i in range(k):
+            mb = {key: v[i * m:(i + 1) * m] for key, v in batch.items()}
+            loss, _ = value_and_flat_grad(model, params, mb, part, sh)
+            grads.add_(part)
+            lsum = lsum + loss
+        grads.div_(k)
+        return lsum / k
 
     def train_step(state, batch, lr):
-        nonlocal grads
+        nonlocal grads, part
         params = state["params"]
         _check_params(params, dev)
         if grads is None:
             grads = torch.empty_like(params.flat)
-        loss, _ = value_and_flat_grad(model, params, _on(batch, dev), grads, sh)
+            part = torch.empty_like(grads) if microbatches > 1 else None
+        batch = _on(batch, dev)
+        if microbatches == 1:
+            loss, _ = value_and_flat_grad(model, params, batch, grads, sh)
+        else:
+            loss = accumulate(params, batch)
+        if grad_exchange is not None:
+            allreduce_(grads, group, grad_exchange)
+            grads.div_(dist.get_world_size(group))
         with torch.no_grad():
             new_params, new_opt = optimizer.update(grads, state["opt"], params, lr)
         return {"params": new_params, "opt": new_opt}, loss

@@ -51,7 +51,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.kernels.fused_update", "repro_torch.optim.schedule",
             "repro_torch.optim.optimizers", "repro_torch.models.resnet",
             "repro_torch.checkpoint.store", "repro_torch.engine.steps",
-            "repro_torch.core.elastic"} <= set(names)
+            "repro_torch.core.elastic", "repro_torch.collectives",
+            "repro_torch.collectives.schedules", "repro_torch.collectives.dist",
+            "repro_torch.launch.mesh", "repro_torch.launch.explicit_allreduce"} <= set(names)
     loaded = _loaded_after("\n".join(f"import {n}" for n in names))
     assert "repro_torch" in loaded and "torch" in loaded
     assert _foreign(loaded) == []
@@ -62,7 +64,8 @@ def test_chip_smoke_imports_without_jax_or_repro():
         "import importlib.util\n"
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))")
-    assert {"repro_torch.launch.serve", "repro_torch.core.elastic"} <= set(loaded)
+    assert {"repro_torch.launch.serve", "repro_torch.core.elastic",
+            "repro_torch.launch.explicit_allreduce"} <= set(loaded)
     assert _foreign(loaded) == []
 
 
@@ -148,15 +151,62 @@ def test_trainer_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch, t
     init_train_state(model, opt, device="cpu")
 
 
-@pytest.mark.parametrize("kwargs", [{"grad_exchange": "ring"}, {"microbatches": 2}])
-def test_train_step_options_of_later_slices_raise(kwargs):
+def _resnet_step(**kwargs):
     from repro_torch.configs.resnet110 import smoke_config
     from repro_torch.engine.steps import make_train_step
     from repro_torch.models.resnet import ResNetModel
     from repro_torch.optim import sgd
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_train_step(ResNetModel(smoke_config()), sgd(), device="cpu", **kwargs)
+    return make_train_step(ResNetModel(smoke_config()), sgd(), device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("name", ["tree", "binary_blocks", "RING"])
+def test_train_step_refuses_an_unknown_exchange(name):
+    with pytest.raises(ValueError, match=f"unknown grad_exchange '{name}'"):
+        _resnet_step(grad_exchange=name)
+
+
+@pytest.mark.parametrize("name", ["ring", "doubling_halving", "psum"])
+def test_train_step_exchange_needs_a_process_group(name):
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match=f"grad_exchange='{name}' needs an "
+                       "initialised torch.distributed process group"):
+        _resnet_step(grad_exchange=name)
+
+
+def test_train_step_refuses_a_batch_that_microbatches_do_not_split():
+    from repro_torch.configs.resnet110 import smoke_config
+    from repro_torch.data.synthetic import CifarLike
+    from repro_torch.engine.steps import init_train_state
+    from repro_torch.models.resnet import ResNetModel
+    from repro_torch.optim import sgd
+
+    state = init_train_state(ResNetModel(smoke_config()), sgd(), device="cpu")
+    with pytest.raises(ValueError, match="a batch of 6 rows does not split into 4"):
+        _resnet_step(microbatches=4)(state, CifarLike(size=16).batch(0, 6), 0.1)
+    with pytest.raises(ValueError, match="microbatches must be at least 1"):
+        _resnet_step(microbatches=0)
+
+
+def test_dp_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch, tmp_path):
+    from repro_torch.launch import explicit_allreduce as ea
+    from repro_torch.launch.mesh import init_data_group, local_rows
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rdzv = f"file://{tmp_path}/rdzv"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_data_group(0, 1, rdzv, "gloo")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ea.run(ea.DPRun())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ea.main([])
+    with pytest.raises(ValueError, match="nccl backend needs a CUDA device"):
+        init_data_group(0, 1, rdzv, "nccl", device="cpu")
+    with pytest.raises(ValueError, match="12 rows does not split over 5 ranks"):
+        local_rows({"x": np.zeros(12)}, 0, 5)
+    assert local_rows({"x": np.arange(12)}, 2, 4)["x"].tolist() == [6, 7, 8]
 
 
 def test_steps_refuse_params_on_another_device():
