@@ -11,7 +11,9 @@
    tests/test_kernels.py (swa_attention in both dtype routes: bf16 on the
    tensor cores, f32 on the CUDA cores), and times kernel, plain version
    and the PyTorch library call that computes the same function
-   (yardstick only);
+   (yardstick only); and holds the gradients of the rmsnorm and
+   swa_attention autograd Functions (kernel forward, explicit backward
+   formula) against torch.autograd of the plain versions;
 4. serve phase: qwen2.5-3b at full published width, random weights from a
    seeded CUDA generator, serve(batch=4, prompt_len=128, new_tokens=32);
    the rmsnorm kernel must run exactly 73 times per decode step;
@@ -31,7 +33,22 @@
    trained state's gradients, one train step's loss and gradient on the
    card against the same step in f32 on the CPU, an exact-resume check
    (5 + 5 steps against 10) and a profile of the train step;
-7. dp phase: data-parallel ResNet-110 at full size through
+7. lm_train phase: the dense LM trainer on qwen2.5-3b at full width and
+   depth, f32 master parameters in one flat buffer (random, from a seeded
+   CUDA generator), bf16 compute, the reference trainer's defaults
+   (AdamW, TokenStream, 8 sequences of 128 tokens, base LR 3e-4) on a
+   warmup-cosine schedule (warmup 5, 30 steps). First, at the initial
+   weights, one step's loss and flat gradient through the kernels against
+   the same step through the plain versions called directly (autograd
+   through them), with two controls that must fail that gate (labels
+   shifted by one position; one layer's mlp/wo gradient zeroed); then 30
+   steps (finite losses, the mean of the last 5 below the first, exactly
+   73 rmsnorm and 36 swa_attention launches a step and no
+   fused_sgd_update), the step time, tokens/s and peak memory, a profile
+   of 2 steps, the f32 lm_logits products timed alone, and an exact-resume
+   check at the smoke config (5 + 5 steps through the CheckpointStore
+   against 10);
+8. dp phase: data-parallel ResNet-110 at full size through
    ``launch.explicit_allreduce``: 4 ranks, each its own process with its
    own CUDA context on the one card, 128 images each (global batch 512,
    LR 1.2e-3 by eq. 7), 5 steps under each of psum, ring and
@@ -46,8 +63,8 @@
    skipped) fail that gate; the first step's exchanged gradients agree
    with dist.all_reduce's.
 
-Launch counts are set to 0 just before the serve, the prefill and the
-training runs and read just after; each dp rank does the same around its
+Launch counts are set to 0 just before the serve, the prefill, the
+training runs and the LM step and training runs and read just after; each dp rank does the same around its
 steps under each algorithm. Any failed check raises, and the script exits non-zero.
 The last two lines are the kernels' JSON line and the device line. It
 exits non-zero, printing no result, when there is no CUDA device.
@@ -62,6 +79,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -72,14 +90,15 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.checkpoint.store import CheckpointStore  # noqa: E402
 from repro_torch.configs import resnet110  # noqa: E402
 from repro_torch.configs.shapes import InputShape  # noqa: E402
 from repro_torch.core.elastic import ElasticTrainer  # noqa: E402
 from repro_torch.data.synthetic import CifarLike, TokenStream  # noqa: E402
-from repro_torch.engine.steps import (make_decode_step, make_prefill,  # noqa: E402
-                                      make_train_step, value_and_flat_grad)
+from repro_torch.engine.steps import (init_train_state, make_decode_step,  # noqa: E402
+                                      make_prefill, make_train_step,
+                                      value_and_flat_grad)
 from repro_torch.collectives import dist as cdist  # noqa: E402
 from repro_torch.engine import steps as steps_module  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -88,9 +107,10 @@ from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
 from repro_torch.kernels import swa_attention as swa_kernel  # noqa: E402
 from repro_torch.launch import explicit_allreduce as dp  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import layers as mlayers  # noqa: E402
 from repro_torch.models import spec as pspec  # noqa: E402
 from repro_torch.models.registry import build_model, decode_window  # noqa: E402
-from repro_torch.optim import sgd  # noqa: E402
+from repro_torch.optim import adamw, sgd, warmup_cosine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -156,6 +176,43 @@ STEP_LIMITS = {"gpu_f32": {"loss_rel_err": 1e-5, "flat_rel_err": 1e-2,
 DECODE_AGREE_MIN = 0.90
 CONTROL_POSITIONS = 128
 CONTROL_FAULTS = ("pos_lag", "no_cache")
+# The LM trainer: qwen2.5-3b at full width and depth with the reference
+# trainer's defaults (src/repro/launch/train.py: AdamW, TokenStream, 8
+# sequences of 128 tokens per worker, base LR 3e-4) on warmup_cosine with
+# a warmup of 5 over 30 steps; the exact-resume check runs 5 + 5 steps at
+# the smoke config.
+LM = dict(batch=8, seq=128, steps=30, base_lr=3e-4, warmup=5)
+LM_RESUME = (5, 5)
+# One step at the initial weights through the kernels against the same
+# step through the plain versions called directly (autograd through
+# them), both in the bf16 compute the trainer runs. Set before the first
+# run from this reasoning: the two routes run the same bf16 graph and
+# differ only where the kernels round (rmsnorm's f32 statistics summed in
+# another order, an occasional bf16 ulp in its output; the attention
+# kernel's bf16 products with P split hi + lo against f32 attention, about
+# 2^-9 relative) and in the backward formulas against autograd (f32
+# rounding). On the CPU, the port against the reference (which differ more:
+# the reference also rounds P to bf16) read a flat gradient error of
+# 0.009-0.014 and a worst per-layer leaf of 0.013-0.032 at 2 layers
+# (tests/test_torch_train_lm.py); 36 layers carry such perturbations
+# further, so 0.005-0.03 and 0.01-0.06 are expected here. The limits are
+# that test's: loss 1e-2 relative (the bf16 contract), relative L2 of the
+# flat gradient 0.05 and of its worst per-layer leaf 0.1. Two controls
+# must fail them: labels shifted by one position (flat error near 1) and
+# one layer's mlp/wo gradient zeroed (that leaf's error is 1).
+LM_STEP_LIMITS = {"loss_rel_err": 1e-2, "flat_rel_err": 0.05,
+                  "worst_leaf_rel_err": 0.1}
+LM_CONTROLS = ("labels_shifted", "one_layer_wo_zeroed")
+# kernel-name substrings of an LM train step's parts, for its profile
+LM_KERNEL_GROUPS = {
+    "rmsnorm": ("rmsnorm",),
+    "swa_attention": ("swa_attention",),
+    "gemm": ("gemm", "nvjet", "xmma", "cutlass"),
+    "index": ("index", "scatter", "gather"),
+    "softmax_logsumexp": ("softmax", "logsumexp"),
+    "reduce": ("reduce_kernel",),
+    "elementwise": ("elementwise", "vectorized"),
+}
 # Data parallel: the train phase's first segment (w = 4, 128 images per
 # worker, base LR 3e-4) as 4 processes, then 3 under ring. ResNet-110's
 # 1,727,962 parameters are a multiple of neither 3 nor 4, so both pad.
@@ -324,6 +381,37 @@ def sgd_compare(gen, n, nesterov, offsets=None) -> float:
     return err
 
 
+def backward_compare(gen, call, case, dtype) -> float:
+    """The gradient of ops.rmsnorm / ops.swa_attention on CUDA tensors that
+    require grad (the autograd Function: kernel forward, explicit backward
+    formula) against torch.autograd of the plain version, for a random
+    cotangent; ``case`` is rmsnorm's shape or swa_attention's (bh, s, d,
+    window, causal)."""
+    if call == "rmsnorm":
+        args = [randn(gen, case, dtype).requires_grad_(),
+                randn(gen, (case[-1],), torch.float32, 0.1).requires_grad_()]
+        out = ops.rmsnorm(*args)
+        plain = ref.rmsnorm_ref(*args)
+        fn_name = "_RMSNormBackward"
+    else:
+        bh, s_, d, window, causal = case
+        args = [randn(gen, (bh, s_, d), dtype).requires_grad_() for _ in range(3)]
+        out = ops.swa_attention(*args, causal=causal, window=window)
+        plain = ref.swa_attention_ref(*args, causal=causal, window=window)
+        fn_name = "_SWAAttentionBackward"
+    check(type(out.grad_fn).__name__ == fn_name, f"{call}: {out.grad_fn} is not the Function")
+    cot = randn(gen, tuple(out.shape), dtype)
+    got = torch.autograd.grad(out, args, cot)
+    want = torch.autograd.grad(plain, args, cot)
+    torch.cuda.synchronize()
+    tol = TOL[call][dtype]
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    check(all(torch.allclose(a.float(), b.float(), rtol=tol, atol=tol)
+              for a, b in zip(got, want)),
+          f"{call} backward {case} {dtype}: max abs err {err}")
+    return err
+
+
 def timings(kernel, plain, library, sets) -> dict:
     """Per call: the summed device time of its kernels (``*ms``, from the
     profiler; the CUDA-event time if the profiler saw no kernel), the
@@ -431,16 +519,31 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
             sgd_compare(gen, n, nesterov)
     for offsets in ((1, 1, 1), (3, 3, 3), (1, 2, 3)):
         sgd_compare(gen, n_resnet, False, offsets)
+    # the Functions' backward at the LM train step's shapes (8 x 128 rows;
+    # 8 x 16 heads of 128 tokens) and at one windowed sweep case
+    rows, bh = LM["batch"] * LM["seq"], LM["batch"] * cfg.n_heads
+    backward = {
+        "rmsnorm": {str(dt).removeprefix("torch."): max(
+            backward_compare(gen, "rmsnorm", shape, dt)
+            for shape in ((rows, cfg.d_model), RMS_SWEEP[2])) for dt in (f32, bf16)},
+        "swa_attention": {str(dt).removeprefix("torch."): max(
+            backward_compare(gen, "swa_attention", case, dt)
+            for case in ((bh, LM["seq"], cfg.d_head, None, True), SWA_SWEEP[2]))
+            for dt in (f32, bf16)}}
     torch.cuda.synchronize()
     print(f"kernel phase: the three kernels agree with their plain versions at "
           f"{len(RMS_SWEEP) * 2 + 2} rmsnorm, {len(SWA_SWEEP) * 2 + 2} "
           f"swa_attention and {2 + 2 * len(SGD_SWEEP) + 3} fused_sgd_update "
-          f"cases", flush=True)
+          f"cases; the rmsnorm and swa_attention Functions' gradients agree "
+          f"with autograd of the plain versions at 4 cases each "
+          f"(max abs err {json.dumps(backward)})", flush=True)
     return {
         "rmsnorm": {"max_abs_err": rms_err,
+                    "backward_max_abs_err": backward["rmsnorm"],
                     "prefill": rms_timing(gen, b * s, cfg.d_model, bf16),
                     "decode": rms_timing(gen, SERVE["batch"], cfg.d_model, bf16)},
         "swa_attention": {"max_abs_err": swa_err,
+                          "backward_max_abs_err": backward["swa_attention"],
                           "prefill": swa_timing(gen, b * cfg.n_heads, s,
                                                 cfg.d_head, bf16, cfg.n_heads),
                           "prefill_f32": swa_timing(gen, b * cfg.n_heads, s,
@@ -878,6 +981,220 @@ def train_phase() -> dict:
     return out
 
 
+# ------------------------------------------------------------ LM train --
+def lm_grad_errors(got: torch.Tensor, want: torch.Tensor, shapes: dict) -> dict:
+    """Relative L2 error of a flat gradient against another, over the whole
+    buffer and at its worst leaf, a stacked leaf (``layers/...``) per
+    layer; sums of squares in f64 one leaf at a time (the buffers hold
+    3.4 B values each)."""
+    num = den = worst = 0.0
+    worst_leaf, off = None, 0
+    for path, shape in shapes.items():
+        size = math.prod(shape)
+        g, w = got[off:off + size].view(shape), want[off:off + size].view(shape)
+        off += size
+        if path.startswith("layers/"):
+            pairs = [(f"{path}[{i}]", a, b)
+                     for i, (a, b) in enumerate(zip(g.unbind(0), w.unbind(0)))]
+        else:
+            pairs = [(path, g, w)]
+        for name, a, b in pairs:
+            d2 = float((a - b).double().square().sum())
+            b2 = float(b.double().square().sum())
+            num, den = num + d2, den + b2
+            err = math.sqrt(d2 / b2) if b2 else (0.0 if d2 == 0 else math.inf)
+            if err > worst:
+                worst, worst_leaf = err, name
+    return {"flat_rel_err": math.sqrt(num / den), "worst_leaf_rel_err": worst,
+            "worst_leaf": worst_leaf}
+
+
+def lm_step_gate(r: dict) -> bool:
+    return all(r[key] < limit for key, limit in LM_STEP_LIMITS.items())
+
+
+def lm_step_vs_plain(model, params, batch: dict) -> dict:
+    """One step's loss and flat gradient through the kernels against the
+    same step through the plain versions called directly, and the two
+    controls. Holds three full-size buffers: parameters and two flat
+    gradients."""
+    shapes = params.shapes()
+    with plain_versions():
+        want_loss, want = value_and_flat_grad(model, params, batch)
+    want_loss = float(want_loss)
+    ops.reset_launch_counts()
+    loss, grads = value_and_flat_grad(model, params, batch)
+    counts = ops.launch_counts()
+
+    def errors(l) -> dict:
+        return {"loss": float(l), "loss_rel_err": abs(float(l) - want_loss) / abs(want_loss),
+                **lm_grad_errors(grads, want, shapes)}
+
+    out = {"plain_loss": want_loss, "launches": counts, "kernels": errors(loss)}
+    pspec.views(grads, shapes)["layers"]["mlp"]["wo"][-1].zero_()
+    out["one_layer_wo_zeroed"] = errors(loss)
+    shifted = dict(batch, labels=torch.roll(batch["labels"], 1, dims=1))
+    loss, grads = value_and_flat_grad(model, params, shifted, grads)
+    out["labels_shifted"] = errors(loss)
+    return out
+
+
+def lm_logits_ms(x_shape, unembed: torch.Tensor, iters: int = 5) -> float:
+    """CUDA-event time of the f32 lm_logits product and its two backward
+    products (no TF32) at the train step's shape, alone."""
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    x = randn(gen, x_shape, torch.bfloat16).requires_grad_()
+    w = unembed.detach().requires_grad_()
+    cot = randn(gen, (*x_shape[:-1], unembed.shape[0]), torch.float32)
+
+    def fwd_bwd():
+        torch.autograd.grad(mlayers.lm_logits(x, w), (x, w), cot)
+
+    return time_ms(fwd_bwd, [()], iters)
+
+
+def lm_backward_formulas_ms(cfg) -> dict:
+    """CUDA-event time of the rmsnorm and swa_attention backward formulas
+    at the train step's shapes, times their calls a step (73 and 36)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    bf16, rows = torch.bfloat16, LM["batch"] * LM["seq"]
+    x, g = (randn(gen, (rows, cfg.d_model), bf16) for _ in range(2))
+    w = randn(gen, (cfg.d_model,), torch.float32, 0.1)
+    qkvo = [randn(gen, (LM["batch"] * cfg.n_heads, LM["seq"], cfg.d_head), bf16)
+            for _ in range(4)]
+    return {"rmsnorm": (2 * cfg.n_layers + 1) * time_ms(
+                lambda: ops.rmsnorm_backward(x, w, g), [()], 20),
+            "swa_attention": cfg.n_layers * time_ms(
+                lambda: ops.swa_attention_backward(*qkvo), [()], 20)}
+
+
+def lm_exact_resume(root: Path) -> dict:
+    """At the smoke config: LM_RESUME[0] steps, a checkpoint of {params,
+    opt}, a restore into a state drawn from another seed and LM_RESUME[1]
+    more steps, against the same steps uninterrupted; deterministic
+    algorithms for this check only (index_add's atomics otherwise)."""
+    cfg = get_smoke_config(ARCH)
+    model = build_model(cfg, torch.float32)
+    data = TokenStream(cfg.vocab_size, LM["seq"], seed=0)
+    n1, n2 = LM_RESUME
+    sched = warmup_cosine(LM["base_lr"], warmup=LM["warmup"], total=n1 + n2)
+
+    def fresh(seed: int) -> dict:
+        return init_train_state(model, adamw(), torch.Generator(device=DEVICE).manual_seed(seed),
+                                device=DEVICE)
+
+    def run(state, steps) -> list[float]:
+        step = make_train_step(model, adamw(), device=DEVICE)
+        return [float(step(state, data.batch(i, LM["batch"]), sched(i))[1]) for i in steps]
+
+    with warnings.catch_warnings():
+        # warn_only: cuBLAS on one stream is deterministic without
+        # CUBLAS_WORKSPACE_CONFIG, which would have to be set before it starts
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            straight = run(fresh(0), range(n1 + n2))
+            state = fresh(0)
+            run(state, range(n1))
+            store = CheckpointStore(str(root / "lm"))
+            store.save(n1, state)
+            restored, _, _ = store.restore(fresh(1))
+            resumed = run(restored, range(n1, n1 + n2))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight[n1:]))
+    check(worst <= 1e-5 and int(restored["opt"]["t"]) == n1 + n2,
+          f"LM exact resume: {resumed} vs {straight[n1:]}")
+    return {"config": cfg.name, "uninterrupted": straight[n1:], "resumed": resumed,
+            "max_rel_err": worst}
+
+
+def lm_train_phase(smi: str) -> dict:
+    cfg = get_config(ARCH)
+    model = build_model(cfg, torch.float32)  # f32 masters, bf16 compute
+    data = TokenStream(cfg.vocab_size, LM["seq"], seed=0)
+    opt = adamw()
+    sched = warmup_cosine(LM["base_lr"], warmup=LM["warmup"], total=LM["steps"])
+    t0 = sync_time()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    init_seconds = sync_time() - t0
+    first = {k: torch.as_tensor(v, device=DEVICE) for k, v in
+             data.batch(0, LM["batch"]).items()}
+    step_check = lm_step_vs_plain(model, params, first)
+    torch.cuda.empty_cache()
+
+    state = {"params": params, "opt": opt.init(params)}
+    step = make_train_step(model, opt, device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, seconds = [], []
+    for i in range(LM["steps"]):
+        t0 = sync_time()
+        state, loss = step(state, data.batch(i, LM["batch"]), sched(i))
+        losses.append(float(loss))
+        seconds.append(sync_time() - t0)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tokens = LM["batch"] * LM["seq"]
+    steady = sorted(seconds[1:])
+    step_ms = 1e3 * steady[len(steady) // 2]
+    more = iter(range(LM["steps"], 1000))
+    profile_ = device_profile(
+        lambda: step(state, data.batch(next(more), LM["batch"]), sched(LM["steps"] - 1)),
+        2, LM_KERNEL_GROUPS)
+    logits_ms = lm_logits_ms((LM["batch"], LM["seq"], cfg.d_model),
+                             state["params"]["unembed"])
+    busy = profile_["device_busy_ms_per_call"]
+    formulas_ms = lm_backward_formulas_ms(cfg)
+    del step  # its flat gradient buffer: AdamW is timed on a zero one
+    zero = torch.zeros_like(params.flat)
+    adamw_ms = time_ms(lambda: opt.update(zero, state["opt"], state["params"], 0.0),
+                       [()], 3)
+    del state, params, zero
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        resume = lm_exact_resume(Path(tmp))
+
+    out = {"config": cfg.name, "n_params": cfg.param_count(), "batch": LM["batch"],
+           "seq": LM["seq"], "steps": LM["steps"], "init_seconds": init_seconds,
+           "step_vs_plain": step_check, "losses": losses,
+           "step_seconds": seconds, "step_ms_median": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3), "peak_memory_bytes": peak,
+           "launches": counts, "profile": profile_,
+           "lm_logits_fwd_bwd_ms": logits_ms,
+           "lm_logits_share_of_device_busy": logits_ms / busy if busy else None,
+           "adamw_update_ms": adamw_ms,
+           "adamw_share_of_device_busy": adamw_ms / busy if busy else None,
+           "backward_formulas_ms_per_step": formulas_ms,
+           "backward_formulas_share_of_device_busy":
+               sum(formulas_ms.values()) / busy if busy else None,
+           "exact_resume": resume, "card": smi}
+    print(f"lm_train: {cfg.name}, {LM['steps']} steps of {tokens} tokens, step "
+          f"{step_ms:.1f} ms (median of steps 2-{LM['steps']}), {tokens / (step_ms / 1e3):.0f} "
+          f"tokens/s, peak memory {peak} bytes, device busy {busy} ms and idle share "
+          f"{profile_['device_idle_share']} a step, f32 lm_logits fwd+bwd "
+          f"{logits_ms:.2f} ms, AdamW update {adamw_ms:.2f} ms, backward formulas "
+          f"{json.dumps(formulas_ms)} ms a step [{smi}]", flush=True)
+    print("lm_train phase: " + json.dumps(out), flush=True)
+
+    per_step = {"rmsnorm": 2 * cfg.n_layers + 1, "swa_attention": cfg.n_layers,
+                "fused_sgd_update": 0}
+    check(step_check["launches"] == per_step, f"LM step launches {step_check['launches']}")
+    check(counts == {k: n * LM["steps"] for k, n in per_step.items()},
+          f"LM train launches {counts}: {per_step} a step")
+    check(lm_step_gate(step_check["kernels"]),
+          f"LM step, kernels vs plain: {step_check['kernels']}, limits {LM_STEP_LIMITS}")
+    for control in LM_CONTROLS:
+        check(not lm_step_gate(step_check[control]),
+              f"LM step gate passed the control {control}: {step_check[control]}")
+    check(all(math.isfinite(l) for l in losses), f"LM losses finite: {losses}")
+    check(sum(losses[-5:]) / 5 < losses[0],
+          f"LM loss falls: mean of the last 5 {losses[-5:]} vs the first {losses[0]}")
+    check(peak < torch.cuda.get_device_properties(0).total_memory,
+          f"LM peak memory {peak}")
+    return out
+
+
 # ------------------------------------------------------- data parallel --
 def _not_divided(x, group=None, algorithm="ring"):
     """Faulty exchange (a): the step's division by w is undone, so the
@@ -1046,6 +1363,9 @@ def main() -> int:
     print(f"serving phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
     trained = train_phase()
     print(f"train phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    torch.cuda.empty_cache()  # the LM trainer needs most of the card
+    lm_trained = lm_train_phase(smi)
+    print(f"lm_train phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     torch.cuda.empty_cache()  # the dp ranks share the card
     data_parallel = dp_phase(smi)
     print(f"dp phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -1060,9 +1380,13 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": tpu[name], "tpu_counterpart": f"{tpu[name]} {name}",
-            "launches": served["launches"][name] + prefilled["launches"][name],
+            "launches": (served["launches"][name] + prefilled["launches"][name]
+                         + lm_trained["launches"][name]),
             "launches_per_decode_step": served["launches"][name] / served["decode_steps"],
             "launches_per_prefill": prefilled["launches"][name],
+            "launches_lm_train": lm_trained["launches"][name],
+            "launches_per_lm_train_step": lm_trained["launches"][name] / lm_trained["steps"],
+            "backward_max_abs_err": k["backward_max_abs_err"],
             "max_abs_err": k["max_abs_err"],
             **k["prefill"], "kernel_ms": k["prefill"]["ms"],  # the issue's name
             **({"at_decode": k["decode"]} if "decode" in k else {}),

@@ -6,8 +6,9 @@ The reference's parameter tree, flattened to ``/``-joined paths as
 tensors with the same paths. The port never imports the store: callers
 flatten the tree themselves.
 
-The ResNet keeps the reference's layouts, so its map is the identity: each
-array is copied into its view of the port's flat parameter buffer.
+The port keeps the reference's layouts, so the map is the identity. Where
+every parameter is f32 (the ResNet; a transformer stored in f32, as it
+trains), each array is copied into its view of one flat parameter buffer.
 """
 from __future__ import annotations
 
@@ -24,15 +25,16 @@ def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig | ResNetConf
                       device, dtype: torch.dtype = torch.bfloat16) -> dict:
     """Port parameters of ``cfg`` from the reference's flattened tree.
 
-    Each weight is kept in the dtype in which the reference uses it: the
-    reference stores everything in f32 and casts the attention and MLP
-    matmul weights and the QKV biases to the activation dtype at use
-    (``p["wq"].astype(dt)``), so those are kept in ``dtype`` (bf16, as the
-    reference's activations; float32 when the model runs in f32). Norm
-    gains stay f32 (``1 + w`` in f32), and ``embed``/``unembed`` stay f32
+    The reference stores everything in f32 and casts the attention and
+    MLP matmul weights and the QKV biases to the activation dtype at use
+    (``p["wq"].astype(dt)``). For a transformer those are stored in
+    ``dtype`` (its ``param_dtype``: bf16 to serve, so that no step casts
+    them; float32 to train, or when the model runs in f32). Norm gains stay
+    f32 (``1 + w`` in f32), and ``embed``/``unembed`` stay f32
     (``lm_logits`` is f32; the embedding is gathered, then cast).
-    A ResNet's parameters are all f32 and come back as one FlatTree
-    (``models.spec``), whatever ``dtype``.
+    Where every parameter is f32 (a ResNet, whatever ``dtype``; a
+    transformer with ``dtype`` float32) they come back as one FlatTree
+    (``models.spec``).
 
     Raises KeyError if a path is missing or extra, ValueError on a shape
     that is not the config's.
@@ -49,6 +51,6 @@ def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig | ResNetConf
             raise ValueError(f"{path}: shape {arr.shape}, config wants {spec.shape}")
         out[path] = torch.from_numpy(np.array(arr, np.float32)).to(
             device=device, dtype=spec.dtype)
-    if isinstance(cfg, ResNetConfig):
+    if all(spec.dtype == torch.float32 for spec in specs.values()):
         return pspec.flat_tree(out, device)
     return pspec.unflatten(out)

@@ -13,7 +13,7 @@ import torch.distributed as dist
 
 from repro_torch.collectives.dist import ALGORITHMS, allreduce_
 from repro_torch.models.layers import NO_SHARD, Sharder
-from repro_torch.models.spec import FlatTree, flatten, unflatten
+from repro_torch.models.spec import FlatTree, flatten, unflatten, views
 from repro_torch.optim.optimizers import Optimizer
 
 
@@ -63,24 +63,52 @@ def make_decode_step(model, sh: Sharder = NO_SHARD,
     return decode_step
 
 
+def _grad_leaves(model, params: FlatTree, grads: torch.Tensor) -> dict:
+    """The tree that autograd differentiates: for each parameter view, a
+    detached alias that requires grad and whose ``.grad`` is its view of
+    the flat f32 buffer ``grads``. Backward adds each gradient into an
+    existing ``.grad`` in place, so the flat buffer is the only full-size
+    gradient storage. A stacked leaf (first axis "layers") becomes a tuple
+    of per-layer leaves: through a per-layer select of the stacked tensor,
+    each layer's gradient would be a full-size zero tensor of the stack."""
+    stacked = {path for path, s in flatten(model.param_specs()).items()
+               if s.axes[:1] == ("layers",)}
+    grad_views = flatten(views(grads, params.shapes()))
+
+    def leaf(p, g):
+        t = p.detach().requires_grad_()
+        t.grad = g
+        return t
+
+    leaves = {}
+    for path, p in flatten(params).items():
+        g = grad_views[path]
+        leaves[path] = (tuple(map(leaf, p.unbind(0), g.unbind(0)))
+                        if path in stacked else leaf(p, g))
+    return unflatten(leaves)
+
+
+def accumulate_flat_grad(model, params: FlatTree, batch: dict,
+                         grads: torch.Tensor, sh: Sharder = NO_SHARD):
+    """Add the gradient of ``model.loss`` at ``params`` on ``batch`` into
+    the flat f32 buffer ``grads`` (in ``params.flat``'s order), in place;
+    returns the loss, detached."""
+    with torch.enable_grad():
+        loss = model.loss(_grad_leaves(model, params, grads), batch, sh)
+        loss.backward()
+    return loss.detach()
+
+
 def value_and_flat_grad(model, params: FlatTree, batch: dict,
                         out: torch.Tensor | None = None, sh: Sharder = NO_SHARD):
     """-> (loss, grads): the loss and its gradient as one flat f32 buffer
-    in ``params.flat``'s order, written into ``out`` when given.
-
-    The leaves that autograd differentiates are detached aliases of the
-    parameter views (the parameters themselves never require grad); their
-    gradients come from ``torch.autograd.grad`` and reach the buffer in one
-    ``torch.cat``.
-    """
-    leaves = {p: v.detach().requires_grad_() for p, v in flatten(params).items()}
-    with torch.enable_grad():
-        loss = model.loss(unflatten(leaves), batch, sh)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+    in ``params.flat``'s order, written into ``out`` when given (the
+    parameters themselves never require grad)."""
     if out is None:
-        out = torch.empty_like(params.flat)
-    torch.cat([g.reshape(-1) for g in grads], out=out)
-    return loss.detach(), out
+        out = torch.zeros_like(params.flat)
+    else:
+        out.zero_()
+    return accumulate_flat_grad(model, params, batch, out, sh), out
 
 
 def make_train_step(model, optimizer: Optimizer, sh: Sharder = NO_SHARD,
@@ -88,14 +116,16 @@ def make_train_step(model, optimizer: Optimizer, sh: Sharder = NO_SHARD,
                     group=None, device="cuda"):
     """(state {params, opt}, batch, lr) -> (state, loss).
 
-    The parameters and optimizer state are updated in place (one fused
-    kernel launch on the GPU) and the same state is returned; the loss is
-    a 0-d tensor, read by the caller only when it needs the value.
+    The parameters and optimizer state are updated in place (for ``sgd``,
+    one fused kernel launch on the GPU) and the same state is returned;
+    the loss is a 0-d tensor, read by the caller only when it needs the
+    value.
 
-    microbatches > 1: gradient accumulation. The batch's leading axis is
-    split into k consecutive microbatches; their flat gradients are summed
-    into one f32 buffer and divided by k, and the loss is the mean of the
-    k losses.
+    Gradients accumulate in one flat f32 buffer, in place (see
+    ``accumulate_flat_grad``). microbatches > 1: gradient accumulation. The
+    batch's leading axis is split into k consecutive microbatches; their
+    gradients are summed into the buffer and divided by k, and the loss is
+    the mean of the k losses.
 
     grad_exchange: None (one process), or "ring", "doubling_halving" or
     "psum": the accumulated gradient is all-reduced over ``group`` (None:
@@ -114,36 +144,28 @@ def make_train_step(model, optimizer: Optimizer, sh: Sharder = NO_SHARD,
     if microbatches < 1:
         raise ValueError(f"microbatches must be at least 1, got {microbatches}")
     dev = resolve_device(device)
-    grads = part = None  # flat gradient buffers, made at the first step
+    grads = None  # the flat gradient buffer, made at the first step
 
-    def accumulate(params, batch):
+    def train_step(state, batch, lr):
+        nonlocal grads
+        params = state["params"]
+        _check_params(params, dev)
+        if grads is None:
+            grads = torch.empty_like(params.flat)
+        batch = _on(batch, dev)
         k = microbatches
         b = len(next(iter(batch.values())))
         if b % k:
             raise ValueError(f"a batch of {b} rows does not split into "
                              f"{k} microbatches")
-        m, lsum = b // k, 0.0
+        m, loss = b // k, 0.0
         grads.zero_()
         for i in range(k):
             mb = {key: v[i * m:(i + 1) * m] for key, v in batch.items()}
-            loss, _ = value_and_flat_grad(model, params, mb, part, sh)
-            grads.add_(part)
-            lsum = lsum + loss
-        grads.div_(k)
-        return lsum / k
-
-    def train_step(state, batch, lr):
-        nonlocal grads, part
-        params = state["params"]
-        _check_params(params, dev)
-        if grads is None:
-            grads = torch.empty_like(params.flat)
-            part = torch.empty_like(grads) if microbatches > 1 else None
-        batch = _on(batch, dev)
-        if microbatches == 1:
-            loss, _ = value_and_flat_grad(model, params, batch, grads, sh)
-        else:
-            loss = accumulate(params, batch)
+            loss = loss + accumulate_flat_grad(model, params, mb, grads, sh)
+        if k > 1:
+            grads.div_(k)
+            loss = loss / k
         if grad_exchange is not None:
             allreduce_(grads, group, grad_exchange)
             grads.div_(dist.get_world_size(group))

@@ -3,8 +3,18 @@
 A CPU tensor goes to the plain PyTorch version in ``kernels.ref``; a CUDA
 tensor goes to the hand-written kernel, which launches or raises. There is
 no fallback from one to the other.
+
+Gradients: where an input requires grad, ``rmsnorm`` and ``swa_attention``
+run through a ``torch.autograd.Function`` whose forward is the same
+dispatch (kernel or plain version, under no_grad) and whose backward is an
+explicit formula in torch ops, in f32 and cast to the input's dtype. The
+reference has no backward kernel (``jax.grad`` differentiates its plain
+``jnp`` ops), so neither has the port; autograd never runs through the
+plain versions here.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -23,18 +33,117 @@ def _route(x: torch.Tensor, name: str) -> bool:
     raise ValueError(f"{name}: no kernel or plain version for {x.device}")
 
 
-def rmsnorm(x, w, *, eps: float = 1e-6):
-    """RMSNorm with gain 1 + w. x: [..., D]; w: [D] f32."""
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+# largest [rows, S] block of f32 softmax weights the attention backward
+# holds at once: 2**28 values, 1 GiB
+_SWA_BWD_BLOCK = 1 << 28
+
+
+def rmsnorm_backward(x, w, g, *, eps: float = 1e-6):
+    """-> (dx, dw) of ``y = x * r * (1 + w)``, ``r = rsqrt(mean(x**2) + eps)``
+    over the last dim, for the cotangent ``g`` of y. With ``a = g * (1 + w)``:
+    ``dx = r * a - x * r**3 * mean(a * x)`` and ``dw = sum_rows g * x * r``.
+    r is recomputed from x; f32 math, dx in x's dtype and dw in w's."""
+    ct = ref.math_dtype(x.dtype)
+    xf, gf, wf = x.to(ct), g.to(ct), w.to(ct)
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    a = gf * (1.0 + wf)
+    dx = r * a - xf * (r * r * r) * torch.mean(a * xf, dim=-1, keepdim=True)
+    dw = (gf * xf * r).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def swa_attention_backward(q, k, v, do, *, causal: bool = True,
+                           window: int | None = None):
+    """-> (dq, dk, dv) of ``o = softmax(mask(q k^T / sqrt(D))) v`` for the
+    cotangent ``do``. P is recomputed from q and k under the forward's
+    mask, over blocks of query rows that hold at most ``_SWA_BWD_BLOCK``
+    f32 weights; then ``dV = P^T dO``, ``dS = P * (dO V^T - rowsum(dO * O))``,
+    ``dQ = dS K / sqrt(D)`` and ``dK = dS^T Q / sqrt(D)``. ``rowsum(dO * O)``
+    is taken as ``rowsum(P * dO V^T)``, its value for the unrounded
+    ``O = P V``, so the bf16 rounding of the forward's output does not
+    enter. f32 math, results in the inputs' dtypes."""
+    bh, s, d = q.shape
+    ct = ref.math_dtype(q.dtype)
+    qf, kf, vf, dof = (t.to(ct) for t in (q, k, v, do))
+    scale = 1.0 / math.sqrt(d)
+    mask = ref.swa_mask(s, q.device, causal=causal, window=window)
+    dq = torch.empty_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    rows = max(1, min(s, _SWA_BWD_BLOCK // max(1, bh * s)))
+    for r0 in range(0, s, rows):
+        r1 = min(s, r0 + rows)
+        qb, dob = qf[:, r0:r1], dof[:, r0:r1]
+        scores = torch.einsum("bqd,bkd->bqk", qb, kf) * scale
+        p = torch.softmax(torch.where(mask[None, r0:r1], scores, ref.NEG_INF), -1)
+        dv += torch.einsum("bqk,bqd->bkd", p, dob)
+        dp = torch.einsum("bqd,bkd->bqk", dob, vf)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        dq[:, r0:r1] = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+        dk += torch.einsum("bqk,bqd->bkd", ds, qb) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _rmsnorm(x, w, eps):
     if _route(x, "rmsnorm"):
         return _rms.rmsnorm(x, w, eps=eps)
     return ref.rmsnorm_ref(x, w, eps=eps)
 
 
-def swa_attention(q, k, v, *, causal: bool = True, window: int | None = None):
-    """Sliding-window flash attention. q/k/v: [BH, S, D]."""
+def _swa_attention(q, k, v, causal, window):
     if _route(q, "swa_attention"):
         return _swa.swa_attention(q, k, v, causal=causal, window=window)
     return ref.swa_attention_ref(q, k, v, causal=causal, window=window)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """``_rmsnorm`` (kernel or plain version) with ``rmsnorm_backward`` as
+    its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rmsnorm(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return (*rmsnorm_backward(x, w, g, eps=ctx.eps), None)
+
+
+class _SWAAttention(torch.autograd.Function):
+    """``_swa_attention`` (kernel or plain version) with
+    ``swa_attention_backward`` as its gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _swa_attention(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*swa_attention_backward(q, k, v, do, causal=ctx.causal,
+                                        window=ctx.window), None, None)
+
+
+def rmsnorm(x, w, *, eps: float = 1e-6):
+    """RMSNorm with gain 1 + w. x: [..., D]; w: [D] f32."""
+    if _wants_grad(x, w):
+        return _RMSNorm.apply(x, w, eps)
+    return _rmsnorm(x, w, eps)
+
+
+def swa_attention(q, k, v, *, causal: bool = True, window: int | None = None):
+    """Sliding-window flash attention. q/k/v: [BH, S, D]."""
+    if _wants_grad(q, k, v):
+        return _SWAAttention.apply(q, k, v, causal, window)
+    return _swa_attention(q, k, v, causal, window)
 
 
 def fused_sgd_update(params_flat, grads_flat, mu_flat, lr, *,

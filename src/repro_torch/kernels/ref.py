@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the kernels (twins of ``repro.kernels.ref``).
 
-f32 math throughout, output in the input dtype. The CPU path of
-``kernels.ops`` runs these; on the GPU they are what each kernel is held
-against.
+Math in f32 (in f64 for f64 inputs, which the gradient checks use),
+output in the input dtype. The CPU path of ``kernels.ops`` runs these; on
+the GPU they are what each kernel is held against.
 """
 from __future__ import annotations
 
@@ -13,19 +13,31 @@ import torch
 NEG_INF = -1e30
 
 
-def swa_attention_ref(q, k, v, *, causal: bool = True,
-                      window: int | None = None):
-    """q, k, v: [BH, S, D] -> [BH, S, D]; f32 math throughout."""
-    bh, s, d = q.shape
-    qf, kf, vf = q.float(), k.float(), v.float()
-    scores = torch.einsum("bqd,bkd->bqk", qf, kf) / math.sqrt(d)
-    qpos = torch.arange(s, device=q.device)[:, None]
-    kpos = torch.arange(s, device=q.device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+def math_dtype(dtype: torch.dtype) -> torch.dtype:
+    """f32, or the input's dtype where that is wider."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def swa_mask(s: int, device, *, causal: bool, window: int | None):
+    """[S, S] bool: key j visible to query i."""
+    qpos = torch.arange(s, device=device)[:, None]
+    kpos = torch.arange(s, device=device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=device)
     if causal:
         mask &= kpos <= qpos
     if window is not None:
         mask &= kpos > qpos - window
+    return mask
+
+
+def swa_attention_ref(q, k, v, *, causal: bool = True,
+                      window: int | None = None):
+    """q, k, v: [BH, S, D] -> [BH, S, D]; f32 math throughout."""
+    bh, s, d = q.shape
+    ct = math_dtype(q.dtype)
+    qf, kf, vf = q.to(ct), k.to(ct), v.to(ct)
+    scores = torch.einsum("bqd,bkd->bqk", qf, kf) / math.sqrt(d)
+    mask = swa_mask(s, q.device, causal=causal, window=window)
     scores = torch.where(mask[None], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, vf).to(q.dtype)
@@ -45,7 +57,8 @@ def fused_sgd_update_ref(params_flat, grads_flat, mu_flat, lr, *,
 
 
 def rmsnorm_ref(x, w, *, eps: float = 1e-6):
-    xf = x.float()
+    ct = math_dtype(x.dtype)
+    xf = x.to(ct)
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(ms + eps)
-    return (y * (1.0 + w.float())).to(x.dtype)
+    return (y * (1.0 + w.to(ct))).to(x.dtype)

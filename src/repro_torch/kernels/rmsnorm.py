@@ -32,8 +32,9 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Ten
     """``x * rsqrt(mean(x**2, -1) + eps) * (1 + w)`` on the GPU.
 
     x: [..., D] contiguous CUDA bf16 or f32; w: [D] f32 on the same device.
-    Statistics in f32, output in ``x.dtype``. No backward: raises when grad
-    mode is on and an input requires grad.
+    Statistics in f32, output in ``x.dtype``. No backward of its own:
+    raises when grad mode is on and an input requires grad; training
+    reaches it through ``kernels.ops.rmsnorm``'s autograd Function.
     """
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         raise RuntimeError("rmsnorm kernel has no backward: call it under "

@@ -62,8 +62,9 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v: [BH, S, D] contiguous CUDA tensors of one dtype (bf16 or f32),
     D in ``HEAD_DIMS``; output in ``q.dtype``, softmax state in f32. bf16
     products run on the tensor cores (P split into bf16 hi + lo halves for
-    P.V), f32 products on the CUDA cores. No backward: raises when grad
-    mode is on and an input requires grad.
+    P.V), f32 products on the CUDA cores. No backward of its own: raises
+    when grad mode is on and an input requires grad; training reaches it
+    through ``kernels.ops.swa_attention``'s autograd Function.
     """
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("swa_attention kernel has no backward: call it "

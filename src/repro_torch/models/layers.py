@@ -167,3 +167,14 @@ def embed_tokens(embedding, tokens, scale: float | None = None):
 def lm_logits(x, out_embedding):
     """x [B,S,D] @ [V,D]^T -> [B,S,V] in f32."""
     return torch.einsum("bsd,vd->bsv", x.float(), out_embedding.float())
+
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """Mean CE over valid positions; logits [B,S,V] f32, labels [B,S]."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = torch.as_tensor(mask, device=logits.device).float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -15,7 +15,9 @@ from repro_torch.models.transformer import TransformerModel
 
 def build_model(cfg: ModelConfig | ResNetConfig,
                 dtype: torch.dtype = torch.bfloat16):
-    """``dtype``: the compute dtype of activations and matmul weights."""
+    """``dtype``: the ResNet's activation dtype (its parameters are f32);
+    the transformer's ``param_dtype``, the dtype in which it stores its
+    matmul weights (bf16 to serve, f32 to train; its activations are bf16)."""
     if isinstance(cfg, ResNetConfig):
         return ResNetModel(cfg, dtype)
     if cfg.family in ("ssm", "hybrid", "audio"):

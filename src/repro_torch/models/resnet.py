@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.spec import TensorSpec as TS, flat_tree, init_params
+from repro_torch.models.spec import TensorSpec as TS, init_flat
 
 
 def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
@@ -101,7 +101,7 @@ class ResNetModel:
 
     def init(self, generator: torch.Generator, device):
         """Random parameters as one FlatTree; ``generator`` lives on ``device``."""
-        return flat_tree(init_params(generator, self.param_specs(), device))
+        return init_flat(generator, self.param_specs(), device)
 
     def _apply_block(self, p, x, stride=1):
         h = conv(x, p["conv1"], stride)
@@ -124,8 +124,11 @@ class ResNetModel:
             x = self._apply_block(first, x, stride)
             rest = params.get(f"stage{si}_rest")
             if rest is not None:
-                # one unbind per stacked tensor: its gradient is one stack
-                slices = {k: v.unbind(0) for k, v in rest.items()}
+                # one unbind per stacked tensor (its gradient is one
+                # stack), or the tuple of per-layer leaves that training
+                # differentiates (engine.steps)
+                slices = {k: v if isinstance(v, tuple) else v.unbind(0)
+                          for k, v in rest.items()}
                 for i in range(self.cfg.n - 1):
                     x = self._apply_block({k: s[i] for k, s in slices.items()}, x)
         x = x.mean(dim=(1, 2)).float()

@@ -133,3 +133,19 @@ def init_params(generator: torch.Generator, tree: dict, device) -> dict:
     flat = flatten(tree)
     return unflatten({p: _init_one(generator, s, device)
                       for p, s in flat.items()})
+
+
+def init_flat(generator: torch.Generator, tree: dict, device) -> FlatTree:
+    """``init_params``'s draws, written leaf by leaf into one flat f32
+    buffer (no second full-size copy): the same values as
+    ``flat_tree(init_params(...))``. Every spec must be f32."""
+    specs = flatten(tree)
+    if any(s.dtype != torch.float32 for s in specs.values()):
+        raise TypeError("init_flat keeps f32 parameters only")
+    flat = torch.empty(sum(math.prod(s.shape) for s in specs.values()),
+                       dtype=torch.float32, device=device)
+    out = views(flat, {p: s.shape for p, s in specs.items()})
+    for path, v in flatten(out).items():
+        v.copy_(_init_one(generator, specs[path], device))
+    return out
+

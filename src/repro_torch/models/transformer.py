@@ -3,8 +3,9 @@
 
 Parameters are the reference's tree as nested dicts of tensors, with the
 per-layer weights stacked along a leading ``[n_layers]`` dim; the layer
-loop is a Python loop over that dim. MoE and the vision front end come in
-later slices (see ROADMAP.md).
+loop is a Python loop over that dim (a stacked leaf may also come as a
+tuple of per-layer tensors, the form in which training differentiates
+it). MoE and the vision front end come in later slices (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
 from repro_torch.models import layers as L
-from repro_torch.models.spec import TensorSpec as TS, init_params
+from repro_torch.models.spec import TensorSpec as TS, init_flat, init_params
 
 
 def _norm_specs(cfg, shape, axes):
@@ -113,12 +114,16 @@ def _layer_params(tree: dict, i: int) -> dict:
 class TransformerModel:
     """Dense decoder-only LM.
 
-    ``dtype`` is the compute dtype at which the reference uses its matmul
-    weights and biases (bf16); they are declared and kept in it, so no step
-    casts them again. Norm gains and the embedding tables stay f32.
+    Two dtypes. The compute dtype is that of the activations: bf16, fixed
+    by ``embed_tokens`` as in the reference; every matmul weight and bias
+    is cast to it at use. ``param_dtype`` is the dtype in which the matmul
+    weights and QKV biases are stored: bf16 for serving (cast once, so no
+    decode step casts them again), f32 for training (the f32 masters the
+    reference keeps, ``repro/models/spec.py``; ``init`` then returns one
+    FlatTree). Norm gains and the embedding tables are f32 either way.
     """
 
-    def __init__(self, cfg: ModelConfig, dtype: torch.dtype = torch.bfloat16):
+    def __init__(self, cfg: ModelConfig, param_dtype: torch.dtype = torch.bfloat16):
         if cfg.is_moe:
             raise NotImplementedError(
                 f"{cfg.name}: MoE is not ported yet (see ROADMAP.md)")
@@ -127,16 +132,16 @@ class TransformerModel:
                 f"{cfg.name}: the vision front end and M-RoPE are not ported "
                 "yet (see ROADMAP.md)")
         self.cfg = cfg
-        self.dtype = dtype
+        self.param_dtype = param_dtype
 
     # ------------------------------------------------------------ specs ----
     def param_specs(self) -> dict:
         cfg = self.cfg
         n, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
         layer = {"ln1": _norm_specs(cfg, (n, D), ("layers", "embed")),
-                 "attn": attn_specs(cfg, n, self.dtype),
+                 "attn": attn_specs(cfg, n, self.param_dtype),
                  "ln2": _norm_specs(cfg, (n, D), ("layers", "embed")),
-                 "mlp": mlp_specs(cfg, n, self.dtype)}
+                 "mlp": mlp_specs(cfg, n, self.param_dtype)}
         p = {"embed": TS((V, D), ("vocab", "embed"), init="embed"),
              "final_norm": _norm_specs(cfg, (D,), ("embed",)),
              "layers": layer}
@@ -145,6 +150,11 @@ class TransformerModel:
         return p
 
     def init(self, generator: torch.Generator, device) -> dict:
+        """Random parameters, drawn from ``generator`` (on ``device``): one
+        FlatTree of f32 masters when ``param_dtype`` is f32, else a nested
+        dict."""
+        if self.param_dtype == torch.float32:
+            return init_flat(generator, self.param_specs(), device)
         return init_params(generator, self.param_specs(), device)
 
     # --------------------------------------------------------- positions ---
@@ -185,6 +195,14 @@ class TransformerModel:
         x = L.apply_norm(cfg, x, params["final_norm"])
         logits = L.lm_logits(x, self._unembed(params))
         return sh(logits, "batch", "seq", "vocab"), 0.0
+
+    def loss(self, params, batch, sh=L.NO_SHARD):
+        """Mean next-token cross-entropy of ``batch`` {tokens, labels [B, S]}
+        plus 0.01 x the auxiliary loss (0 on the dense path), as in the
+        reference."""
+        logits, aux = self.forward(params, batch, sh)
+        labels = torch.as_tensor(batch["labels"], device=logits.device)
+        return L.softmax_cross_entropy(logits, labels) + 0.01 * aux
 
     # ------------------------------------------------------------ serve ----
     def cache_specs(self, shape: InputShape, dtype=torch.bfloat16) -> dict:

@@ -53,7 +53,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.checkpoint.store", "repro_torch.engine.steps",
             "repro_torch.core.elastic", "repro_torch.collectives",
             "repro_torch.collectives.schedules", "repro_torch.collectives.dist",
-            "repro_torch.launch.mesh", "repro_torch.launch.explicit_allreduce"} <= set(names)
+            "repro_torch.launch.mesh", "repro_torch.launch.explicit_allreduce",
+            "repro_torch.launch.train"} <= set(names)
     loaded = _loaded_after("\n".join(f"import {n}" for n in names))
     assert "repro_torch" in loaded and "torch" in loaded
     assert _foreign(loaded) == []
@@ -188,6 +189,41 @@ def test_train_step_refuses_a_batch_that_microbatches_do_not_split():
         _resnet_step(microbatches=4)(state, CifarLike(size=16).batch(0, 6), 0.1)
     with pytest.raises(ValueError, match="microbatches must be at least 1"):
         _resnet_step(microbatches=0)
+
+
+def test_lm_trainer_needs_a_gpu_unless_asked_for_the_cpu(monkeypatch, capsys):
+    from repro_torch.launch import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    args = ["--arch", "qwen2.5-3b", "--smoke", "--steps", "1", "--seq", "8",
+            "--m-per-worker", "1", "--log-every", "1"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(args)
+    first, last = train.main(args + ["--device", "cpu"])
+    assert np.isfinite(first) and first == last
+    assert "step     0 loss" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("call", ["rmsnorm", "swa_attention"])
+def test_kernel_wrappers_still_refuse_grad_outside_the_functions(call):
+    """Called directly, a kernel wrapper refuses an input that requires
+    grad; through kernels.ops the same input goes to the autograd
+    Function, whose forward runs with grad off."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rmsnorm as rms_kernel
+    from repro_torch.kernels import swa_attention as swa_kernel
+
+    x = torch.ones(2, 8, 32, requires_grad=True)
+    w = torch.zeros(32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        if call == "rmsnorm":
+            rms_kernel.rmsnorm(x, w)
+        else:
+            swa_kernel.swa_attention(x, x, x)
+    out = ops.rmsnorm(x, w) if call == "rmsnorm" else ops.swa_attention(x, x, x)
+    assert out.grad_fn is not None and "Backward" in type(out.grad_fn).__name__
+    out.sum().backward()
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
 
 
 def test_dp_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch, tmp_path):

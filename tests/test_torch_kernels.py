@@ -298,17 +298,24 @@ def test_swa_design_is_read_from_the_built_kernels(cuda, d):
 @pytest.mark.cuda
 @pytest.mark.parametrize("call", ["rmsnorm", "swa_attention"])
 def test_kernel_wrappers_refuse_grad_on_cuda(cuda, call):
+    """Called directly, the wrapper refuses an input that requires grad and
+    launches nothing; through kernels.ops the input goes to the autograd
+    Function, which launches the kernel once (its forward runs with grad
+    off) and gives a gradient."""
     x = torch.zeros(2, 64, 32, device=cuda, dtype=torch.bfloat16)
     w = torch.zeros(32, device=cuda).requires_grad_()
     if call == "swa_attention":
         x.requires_grad_()
     n = ops.launch_counts()
     with pytest.raises(RuntimeError, match="no backward"):
-        (ops.rmsnorm(x, w) if call == "rmsnorm" else ops.swa_attention(x, x, x))
+        (rms_kernel.rmsnorm(x, w) if call == "rmsnorm"
+         else swa_kernel.swa_attention(x, x, x))
     assert ops.launch_counts() == n
-    with torch.no_grad():
-        out = ops.rmsnorm(x, w) if call == "rmsnorm" else ops.swa_attention(x, x, x)
-    assert out.grad_fn is None and ops.launch_counts()[call] == n[call] + 1
+    out = ops.rmsnorm(x, w) if call == "rmsnorm" else ops.swa_attention(x, x, x)
+    assert type(out.grad_fn).__name__ in ("_RMSNormBackward", "_SWAAttentionBackward")
+    assert ops.launch_counts()[call] == n[call] + 1
+    out.float().sum().backward()
+    assert (w if call == "rmsnorm" else x).grad is not None
 
 
 @pytest.mark.cuda

@@ -1,0 +1,493 @@
+"""The port's dense LM trainer against the reference, on the CPU at smoke
+size: ``softmax_cross_entropy``, ``adamw``, the gradients of the
+``rmsnorm`` and ``swa_attention`` autograd Functions, ``TransformerModel.loss``
+and its flat gradient, 5 train steps, gradient accumulation, the flat
+gradient buffer as the only gradient storage, ``launch.train.main`` and
+checkpoints of the LM train state crossing between the packages.
+
+Inputs are made from seeds with numpy and handed to both packages.
+Tolerances, each set before its first run:
+
+* f32 elementwise code (cross-entropy, AdamW): 1e-6 relative, a few f32
+  ulps of the same formula in another order.
+* The Functions' backward formulas against ``torch.autograd`` of the
+  plain versions: the kernels' own tolerances of tests/test_kernels.py,
+  f32 1e-5 (rmsnorm) and 2e-5 (swa_attention), bf16 2e-2; gradcheck in f64.
+* Loss and flat gradient against ``jax.value_and_grad`` of the reference,
+  both in the reference's bf16 compute: loss within 1e-2 relative (the
+  bf16 contract), the whole flat gradient within 0.05 and its worst
+  per-layer leaf within 0.1 (relative L2). Both packages run the same bf16
+  graph; they differ where bf16 rounds (the reference rounds the softmax
+  weights before P.V, the port does not) and in summation order, about
+  2^-9 relative per rounded value, which a few layers carry to about 1e-2
+  (reached: flat 0.009-0.014, worst leaf 0.013-0.032, on attention's QKV
+  biases and weights). Two controls must fail them: labels shifted by one
+  position (a flat error near 1) and one layer's ``mlp/wo`` gradient
+  zeroed (that leaf's error is 1).
+* 5 AdamW steps against the reference's ``make_train_step`` in f32 (both
+  packages' ``embed_tokens`` patched to f32): losses within 1e-5
+  relative, the moments within 1e-3 and the update p5 - p0 within 5e-3
+  (relative L2). The f32 forward agrees to 1e-5; AdamW's step
+  m / (sqrt(v) + eps) does not scale with the gradient, so rounding noise
+  in elements whose gradient is near 0 becomes update noise of order lr
+  (reached: 1.8e-6, 9e-5 and 4.3e-4).
+* Gradient accumulation, k = 2 against k = 1: losses within 1e-6; the
+  flat gradient within 1e-5 in f32 (summation order) and 2e-2 in bf16
+  (each microbatch's bf16 weight gradient is rounded over half the rows;
+  reached 2e-3).
+"""
+import pytest
+
+pytest.importorskip("torch")  # the CI lane without torch skips the port
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+import repro.models.layers as JL
+from repro.checkpoint.store import CheckpointStore as JaxStore, _flatten
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.engine.steps import init_train_state as jax_init_train_state
+from repro.engine.steps import make_train_step as jax_make_train_step
+from repro.models.registry import build_model as jax_build_model
+from repro.optim.optimizers import adamw as jax_adamw
+from repro_torch.bridge import params_from_numpy
+from repro_torch.checkpoint.store import CheckpointStore
+from repro_torch.configs import ARCH_IDS, get_smoke_config
+from repro_torch.data.synthetic import TokenStream
+from repro_torch.engine import steps
+from repro_torch.engine.steps import (init_train_state, make_train_step,
+                                      value_and_flat_grad)
+from repro_torch.kernels import ops, ref
+from repro_torch.launch import train
+from repro_torch.models import layers as TL
+from repro_torch.models import spec as tspec
+from repro_torch.models.registry import build_model
+from repro_torch.optim import adamw, optimizers
+from _torch_parity import DTYPES, patch_f32_embeddings
+
+F32_ELEMENTWISE = 1e-6
+FN_TOL = {"rmsnorm": {"float32": 1e-5, "bfloat16": 2e-2},
+          "swa_attention": {"float32": 2e-5, "bfloat16": 2e-2}}
+LOSS_REL = 1e-2
+FLAT_REL_L2 = 0.05
+LEAF_REL_L2 = 0.1
+
+
+def _rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def _flat(tree) -> np.ndarray:
+    """A reference tree's leaves in path order, as one f64 vector."""
+    return np.concatenate([np.asarray(v, np.float64).reshape(-1)
+                           for v in _flatten(tree).values()])
+
+
+def _leaf_errors(got, want, shapes) -> dict[str, float]:
+    """Relative L2 error of each leaf of two flat gradients, a stacked
+    leaf (``layers/...``) per layer."""
+    out, off = {}, 0
+    for path, shape in shapes.items():
+        size = math.prod(shape)
+        g = np.asarray(got[off:off + size]).reshape(shape)
+        w = np.asarray(want[off:off + size]).reshape(shape)
+        off += size
+        if path.startswith("layers/"):
+            for i in range(shape[0]):
+                out[f"{path}[{i}]"] = _rel(g[i], w[i])
+        else:
+            out[path] = _rel(g, w)
+    return out
+
+
+def _tokens(cfg, seq=32, batch=4, step=0, seed=1):
+    return TokenStream(cfg.vocab_size, seq, seed=seed).batch(step, batch)
+
+
+def _on_torch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _on_jax(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+# ------------------------------------------------------- cross-entropy ----
+@pytest.mark.parametrize("mask", ["none", "some", "empty"])
+def test_softmax_cross_entropy_matches_reference(mask):
+    rng = np.random.default_rng(7)
+    logits = rng.standard_normal((2, 5, 33), dtype=np.float32) * 3
+    labels = rng.integers(0, 33, (2, 5)).astype(np.int32)
+    m = {"none": None, "some": rng.random((2, 5)) < 0.6,
+         "empty": np.zeros((2, 5), bool)}[mask]
+    got = TL.softmax_cross_entropy(torch.from_numpy(logits), torch.from_numpy(labels),
+                                   None if m is None else torch.from_numpy(m))
+    want = JL.softmax_cross_entropy(jnp.asarray(logits), jnp.asarray(labels),
+                                    None if m is None else jnp.asarray(m))
+    np.testing.assert_allclose(float(got), float(want), rtol=F32_ELEMENTWISE,
+                               atol=F32_ELEMENTWISE if mask == "empty" else 0)
+
+
+# --------------------------------------------------------------- adamw ----
+ADAMW_SHAPES = {"a": (3, 4), "b": {"c": (7,), "d": (2, 2, 3)}}
+
+
+@pytest.mark.parametrize("chunk", [None, 5])
+@pytest.mark.parametrize("n_updates", [1, 3])
+def test_adamw_matches_reference(n_updates, chunk, monkeypatch):
+    """Parameters, moments and ``t`` after n updates, from the same trees;
+    ``chunk`` 5 runs the chunked step over a ragged last chunk."""
+    if chunk is not None:
+        monkeypatch.setattr(optimizers, "_ADAMW_CHUNK", chunk)
+    rng = np.random.default_rng(n_updates)
+    shapes = tspec.flatten(ADAMW_SHAPES)
+    p0 = {k: rng.standard_normal(s, dtype=np.float32) for k, s in shapes.items()}
+    jparams = tspec.unflatten({k: jnp.asarray(v) for k, v in p0.items()})
+    params = tspec.flat_tree(tspec.unflatten({k: torch.from_numpy(v) for k, v in p0.items()}))
+    jopt, opt = jax_adamw(), adamw()
+    jstate, state = jopt.init(jparams), opt.init(params)
+    for i in range(n_updates):
+        g = {k: rng.standard_normal(s, dtype=np.float32) * 10.0 ** -i
+             for k, s in shapes.items()}
+        lr = 1e-3 * (i + 1)
+        jparams, jstate = jopt.update(tspec.unflatten({k: jnp.asarray(v) for k, v in g.items()}),
+                                      jstate, jparams, jnp.float32(lr))
+        flat_g = torch.cat([torch.from_numpy(g[k]).reshape(-1) for k in shapes])
+        params, state = opt.update(flat_g, state, params, lr)
+    assert int(state["t"]) == int(jstate["t"]) == n_updates
+    assert state["t"].dtype == torch.int32 and state["t"].dim() == 0
+    for got, want in ((params, jparams), (state["m"], jstate["m"]),
+                      (state["v"], jstate["v"])):
+        np.testing.assert_allclose(got.flat.numpy(), _flat(want).astype(np.float32),
+                                   rtol=F32_ELEMENTWISE, atol=0)
+
+
+def test_adamw_refuses_a_tree_without_a_flat_buffer():
+    with pytest.raises(TypeError, match="FlatTree"):
+        adamw().init({"w": torch.zeros(3)})
+
+
+# ------------------------------------------- the Functions' backward ----
+RMS_SHAPES = [(3, 16), (2, 5, 8)]
+# (bh, s, d, causal, window): causal, windowed, not causal, D = 80
+SWA_CASES = [(2, 12, 16, True, None), (2, 12, 16, True, 5),
+             (1, 9, 16, False, None), (2, 7, 80, True, 3)]
+
+
+def _rms_args(shape, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape)
+    w = rng.standard_normal(shape[-1]) * 0.1
+    g = rng.standard_normal(shape)
+    return (torch.from_numpy(x).to(dtype), torch.from_numpy(w).to(
+        torch.float64 if dtype == torch.float64 else torch.float32),
+        torch.from_numpy(g).to(dtype))
+
+
+def _swa_args(bh, s, d, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((bh, s, d))).to(dtype)
+            for _ in range(4)]
+
+
+@pytest.mark.parametrize("shape", RMS_SHAPES)
+def test_rmsnorm_function_passes_gradcheck(shape):
+    x, w, _ = _rms_args(shape, torch.float64)
+    x.requires_grad_(), w.requires_grad_()
+    assert torch.autograd.gradcheck(lambda x, w: ops.rmsnorm(x, w), (x, w))
+
+
+@pytest.mark.parametrize("bh,s,d,causal,window", SWA_CASES)
+def test_swa_attention_function_passes_gradcheck(bh, s, d, causal, window):
+    q, k, v, _ = _swa_args(bh, s, d, torch.float64)
+    args = [t.requires_grad_() for t in (q, k, v)]
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: ops.swa_attention(q, k, v, causal=causal, window=window),
+        args)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RMS_SHAPES + [(64, 256)])
+def test_rmsnorm_backward_matches_autograd_of_plain(shape, dtype):
+    x, w, g = _rms_args(shape, DTYPES[dtype][1], seed=sum(shape))
+    x.requires_grad_(), w.requires_grad_()
+    out = ops.rmsnorm(x, w)
+    assert type(out.grad_fn).__name__ == "_RMSNormBackward"
+    got = torch.autograd.grad(out, (x, w), g)
+    want = torch.autograd.grad(ref.rmsnorm_ref(x, w), (x, w), g)
+    tol = FN_TOL["rmsnorm"][dtype]
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,s,d,causal,window", SWA_CASES + [(4, 100, 80, True, 30)])
+def test_swa_attention_backward_matches_autograd_of_plain(bh, s, d, causal, window,
+                                                          dtype):
+    q, k, v, do = _swa_args(bh, s, d, DTYPES[dtype][1], seed=s + d)
+    args = [t.requires_grad_() for t in (q, k, v)]
+    out = ops.swa_attention(*args, causal=causal, window=window)
+    assert type(out.grad_fn).__name__ == "_SWAAttentionBackward"
+    got = torch.autograd.grad(out, args, do)
+    want = torch.autograd.grad(ref.swa_attention_ref(*args, causal=causal,
+                                                     window=window), args, do)
+    tol = FN_TOL["swa_attention"][dtype]
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(),
+                                   rtol=tol, atol=tol)
+
+
+def test_swa_attention_backward_in_row_blocks(monkeypatch):
+    """Blocks of query rows (here 3 rows, a ragged last block) give the
+    one-block result."""
+    q, k, v, do = _swa_args(2, 10, 16, torch.float32, seed=3)
+    whole = ops.swa_attention_backward(q, k, v, do, window=4)
+    monkeypatch.setattr(ops, "_SWA_BWD_BLOCK", 2 * 10 * 3)
+    blocks = ops.swa_attention_backward(q, k, v, do, window=4)
+    for a, b in zip(blocks, whole):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------------- loss and gradient ----
+def _both_models(arch, seed=0):
+    jcfg, cfg = jax_smoke_config(arch), get_smoke_config(arch)
+    jm = jax_build_model(jcfg)
+    jparams = jm.init(jax.random.PRNGKey(seed))
+    tm = build_model(cfg, torch.float32)
+    return cfg, jm, jparams, tm, params_from_numpy(_flatten(jparams), cfg, "cpu",
+                                                   torch.float32)
+
+
+@pytest.fixture(scope="module")
+def reference_grads():
+    """Per arch: the reference's loss and flat gradient, and the port's
+    model, parameters and batch, computed once for the module."""
+    out = {}
+    for arch in ARCH_IDS:
+        cfg, jm, jparams, tm, params = _both_models(arch)
+        batch = _tokens(cfg, seq=64)
+        loss, grads = jax.value_and_grad(lambda p: jm.loss(p, _on_jax(batch)))(jparams)
+        out[arch] = (float(loss), _flat(grads), tm, params, batch)
+    return out
+
+
+def _gate(loss, grads, want_loss, want, shapes) -> dict:
+    leaves = _leaf_errors(grads, want, shapes)
+    return {"loss": abs(loss - want_loss) / abs(want_loss),
+            "flat": _rel(grads, want), "leaf": max(leaves.values())}
+
+
+def _passes(r) -> bool:
+    return r["loss"] < LOSS_REL and r["flat"] < FLAT_REL_L2 and r["leaf"] < LEAF_REL_L2
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_loss_and_flat_grad_match_jax(arch, reference_grads):
+    want_loss, want, tm, params, batch = reference_grads[arch]
+    loss, grads = value_and_flat_grad(tm, params, _on_torch(batch))
+    r = _gate(float(loss), grads.double().numpy(), want_loss, want, params.shapes())
+    assert _passes(r), r
+
+
+@pytest.mark.parametrize("control", ["labels_shifted", "one_layer_wo_zeroed"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_loss_and_flat_grad_gate_fails_its_controls(arch, control, reference_grads):
+    want_loss, want, tm, params, batch = reference_grads[arch]
+    if control == "labels_shifted":
+        batch = dict(batch, labels=np.roll(batch["labels"], 1, axis=1))
+    loss, grads = value_and_flat_grad(tm, params, _on_torch(batch))
+    if control == "one_layer_wo_zeroed":
+        tspec.views(grads, params.shapes())["layers"]["mlp"]["wo"][-1].zero_()
+    r = _gate(float(loss), grads.double().numpy(), want_loss, want, params.shapes())
+    assert not _passes(r), r
+    assert r["flat"] > 0.5 if control == "labels_shifted" else r["leaf"] == 1.0
+
+
+def test_loss_is_the_reference_formula():
+    """loss = softmax_cross_entropy(forward) + 0.01 * aux, labels as given."""
+    cfg, _, _, tm, params = _both_models("gemma-2b")
+    batch = _on_torch(_tokens(cfg, seq=16, batch=2))
+    logits, aux = tm.forward(params, batch)
+    want = TL.softmax_cross_entropy(logits, batch["labels"]) + 0.01 * aux
+    assert float(tm.loss(params, batch)) == float(want)
+
+
+# ------------------------------------------------------------ training ----
+def test_five_adamw_steps_match_the_reference_step(monkeypatch):
+    patch_f32_embeddings(monkeypatch)
+    cfg, jm, jparams, tm, params = _both_models("qwen2.5-3b")
+    jstep = jax.jit(jax_make_train_step(jm, jax_adamw()))
+    jstate = {"params": jparams, "opt": jax_adamw().init(jparams)}
+    opt = adamw()
+    state = {"params": params, "opt": opt.init(params)}
+    step = make_train_step(tm, opt, device="cpu")
+    p0 = params.flat.double().numpy().copy()
+    for i in range(5):
+        batch = _tokens(cfg, step=i, seed=0)
+        lr = 1e-3 * min(1.0, (i + 1) / 3)
+        jstate, jloss = jstep(jstate, _on_jax(batch), jnp.float32(lr))
+        state, loss = step(state, batch, lr)
+        assert abs(float(loss) - float(jloss)) / float(jloss) < 1e-5, (i, loss, jloss)
+    assert int(state["opt"]["t"]) == int(jstate["opt"]["t"]) == 5
+    for key in ("m", "v"):
+        assert _rel(state["opt"][key].flat.double().numpy(),
+                    _flat(jstate["opt"][key])) < 1e-3
+    got = state["params"].flat.double().numpy() - p0
+    assert _rel(got, _flat(jstate["params"]) - p0) < 5e-3
+
+
+class _Recording:
+    """adamw, keeping a copy of the gradient each update is given."""
+
+    def __init__(self):
+        self.inner, self.grads = adamw(), []
+        self.init, self.name = self.inner.init, "adamw"
+
+    def update(self, grads, state, params, lr):
+        self.grads.append(grads.clone())
+        return self.inner.update(grads, state, params, lr)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
+def test_microbatches_two_against_one(dtype, tol, monkeypatch):
+    if dtype == "float32":
+        patch_f32_embeddings(monkeypatch)
+    cfg, _, jparams, tm, _ = _both_models("gemma-2b")
+    batch = _tokens(cfg, batch=4, seed=0)
+    out = {}
+    for k in (1, 2):
+        params = params_from_numpy(_flatten(jparams), cfg, "cpu", torch.float32)
+        opt = _Recording()
+        step = make_train_step(tm, opt, microbatches=k, device="cpu")
+        _, loss = step({"params": params, "opt": opt.init(params)}, batch, 1e-3)
+        out[k] = (float(loss), opt.grads[0].double().numpy())
+    assert abs(out[2][0] - out[1][0]) / out[1][0] < 1e-6
+    assert _rel(out[2][1], out[1][1]) < tol
+
+
+class _Allocations(TorchDispatchMode):
+    """Op, shape and storage bytes of each tensor an op returns that does
+    not live in one of the ``known`` tensors' storage."""
+
+    def __init__(self, *known):
+        super().__init__()
+        self.known = {t.untyped_storage().data_ptr() for t in known}
+        self.outputs = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if (isinstance(t, torch.Tensor)
+                    and t.untyped_storage().data_ptr() not in self.known):
+                self.outputs.append((str(func), tuple(t.shape),
+                                     t.untyped_storage().nbytes()))
+        return out
+
+
+def test_flat_gradient_buffer_is_the_only_full_size_gradient_storage():
+    """No op of a gradient computation makes a tensor as large as the
+    parameters, or the shape of a stacked leaf (a full-size zero per
+    layer); each leaf's gradient lands in its view of the buffer."""
+    cfg = get_smoke_config("qwen2.5-3b")
+    tm = build_model(cfg, torch.float32)
+    params = tm.init(torch.Generator().manual_seed(0), "cpu")
+    batch = _on_torch(_tokens(cfg, seq=8, batch=3))
+    buf = torch.full_like(params.flat, float("nan"))
+    with _Allocations(buf, params.flat) as seen:
+        loss, grads = value_and_flat_grad(tm, params, batch, buf)
+    assert grads is buf and bool(torch.isfinite(buf).all()) and float(loss) > 0
+    full = buf.untyped_storage().nbytes()
+    stacked = {s for p, s in params.shapes().items() if p.startswith("layers/")}
+    assert len(seen.outputs) > 100
+    for func, shape, nbytes in seen.outputs:
+        assert nbytes < full and shape not in stacked, (func, shape)
+    # backward adds into the views it was given
+    leaves = steps._grad_leaves(tm, params, buf.zero_())
+    tm.loss(leaves, batch).backward()
+    lo, hi = buf.data_ptr(), buf.data_ptr() + full
+    for path, leaf in tspec.flatten(leaves).items():
+        for t in (leaf if isinstance(leaf, tuple) else (leaf,)):
+            assert lo <= t.grad.data_ptr() < hi and t.grad._base is buf, path
+    assert isinstance(leaves["layers"]["mlp"]["wo"], tuple)
+    torch.testing.assert_close(buf, grads, rtol=0, atol=0)
+
+
+def test_train_cli_loss_decreases():
+    """tests/test_system.py::test_train_cli_loss_decreases on the port."""
+    first, last = train.main(["--arch", "gemma-2b", "--smoke", "--steps", "25",
+                              "--workers", "2", "--m-per-worker", "4",
+                              "--seq", "32", "--log-every", "25",
+                              "--device", "cpu"])
+    assert last < first - 0.15, (first, last)
+
+
+def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
+    args = ["--arch", "qwen2.5-3b", "--smoke", "--steps", "3", "--seq", "16",
+            "--m-per-worker", "2", "--ckpt-dir", str(tmp_path), "--device", "cpu"]
+    train.main(args)
+    assert CheckpointStore(str(tmp_path)).steps() == [3]
+    train.main(args + ["--resume"])
+    assert "restored step 3" in capsys.readouterr().out
+    assert CheckpointStore(str(tmp_path)).steps() == [3, 6]
+
+
+def test_train_cli_refuses_a_grad_exchange(capsys):
+    with pytest.raises(SystemExit):
+        train.main(["--arch", "gemma-2b", "--smoke", "--grad-exchange", "ring",
+                    "--device", "cpu"])
+    assert "repro_torch.launch.explicit_allreduce" in capsys.readouterr().err
+
+
+# --------------------------------------------------------- checkpoints ----
+def _jax_lm_state(cfg_name):
+    jm = jax_build_model(jax_smoke_config(cfg_name))
+    state = jax_init_train_state(jm, jax_adamw())
+    step = jax.jit(jax_make_train_step(jm, jax_adamw()))
+    batch = _on_jax(_tokens(get_smoke_config(cfg_name), seq=16, batch=2))
+    return jm, step(state, batch, jnp.float32(1e-3))[0]
+
+
+def _torch_lm_state(cfg_name):
+    tm = build_model(get_smoke_config(cfg_name), torch.float32)
+    opt = adamw()
+    state = init_train_state(tm, opt, generator=torch.Generator().manual_seed(3),
+                             device="cpu")
+    step = make_train_step(tm, opt, device="cpu")
+    batch = _tokens(get_smoke_config(cfg_name), seq=16, batch=2)
+    for _ in range(2):
+        state, _ = step(state, batch, 1e-3)
+    return tm, state
+
+
+@pytest.mark.parametrize("direction", ["port_to_reference", "reference_to_port"])
+def test_lm_checkpoints_cross_between_the_packages(direction, tmp_path):
+    """{params, opt: {m, v, t}} written by one package's store restores
+    bit-exact in the other's."""
+    arch = "qwen2.5-3b"
+    tm, tstate = _torch_lm_state(arch)
+    jm, jstate = _jax_lm_state(arch)
+    if direction == "port_to_reference":
+        CheckpointStore(str(tmp_path)).save(2, tstate)
+        got, _, _ = JaxStore(str(tmp_path)).restore(jstate)
+        want = {k: v.numpy() for k, v in tspec.flatten(tstate).items()}
+        got = _flatten(got)
+    else:
+        JaxStore(str(tmp_path)).save(1, jstate)
+        template = init_train_state(tm, adamw(), device="cpu")
+        restored, _, _ = CheckpointStore(str(tmp_path)).restore(template)
+        assert restored["params"].flat.data_ptr() == template["params"].flat.data_ptr()
+        want = _flatten(jstate)
+        got = {k: v.numpy() for k, v in tspec.flatten(restored).items()}
+    assert got.keys() == want.keys() and "opt/t" in got
+    for key, w in want.items():
+        g = np.asarray(got[key])
+        assert g.dtype == np.asarray(w).dtype and np.array_equal(g, np.asarray(w)), key
