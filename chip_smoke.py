@@ -22,7 +22,23 @@
    plain versions, and against step-by-step decode over the same prompt;
    two faulty-cache controls show that the decode-vs-prefill gate fails
    when the cache is wrong;
-6. train phase: the elastic trainer on ResNet-110 at its full published
+6. moe_serve phase: qwen3-moe-30b-a3b at full published width (48
+   layers, 128 experts top-8, 30.5 B parameters in bf16, random from a
+   seeded CUDA generator): the serve of phase 4 (97 rmsnorm launches a
+   decode step, no swa_attention), a [2, 1024] prefill at the config's
+   capacity factor (97 rmsnorm and 48 swa_attention launches) held against
+   the plain versions with the flipped routing choices counted, decode
+   against prefill at capacity factor 8 over CONTROL_POSITIONS positions
+   with the two faulty-cache controls, moe_ffn at the decode and prefill
+   shapes under torch.cuda.set_sync_debug_mode("error"), and a profile of
+   a prefill and a decode step with the device time by group;
+7. vlm phase: qwen2-vl-2b at full published width (M-RoPE, 256 patch
+   embeddings): a [2, 1024] prefill with patch embeddings (57 rmsnorm and
+   28 swa_attention launches) held against the plain versions, the same
+   weights and inputs without M-RoPE as a control that must fail that
+   contract, a profile of the prefill, and the serve of phase 4 (57
+   rmsnorm launches a decode step);
+8. train phase: the elastic trainer on ResNet-110 at its full published
    size (random weights from a seeded CUDA generator, CifarLike data of
    CIFAR-10's 50,000 images, 128 images per worker): the paper's Table 2
    pattern on one card, 20 steps at w = 4, stop, restart at w = 8 with
@@ -33,7 +49,7 @@
    trained state's gradients, one train step's loss and gradient on the
    card against the same step in f32 on the CPU, an exact-resume check
    (5 + 5 steps against 10) and a profile of the train step;
-7. lm_train phase: the dense LM trainer on qwen2.5-3b at full width and
+9. lm_train phase: the dense LM trainer on qwen2.5-3b at full width and
    depth, f32 master parameters in one flat buffer (random, from a seeded
    CUDA generator), bf16 compute, the reference trainer's defaults
    (AdamW, TokenStream, 8 sequences of 128 tokens, base LR 3e-4) on a
@@ -48,7 +64,7 @@
    of 2 steps, the f32 lm_logits products timed alone, and an exact-resume
    check at the smoke config (5 + 5 steps through the CheckpointStore
    against 10);
-8. dp phase: data-parallel ResNet-110 at full size through
+10. dp phase: data-parallel ResNet-110 at full size through
    ``launch.explicit_allreduce``: 4 ranks, each its own process with its
    own CUDA context on the one card, 128 images each (global batch 512,
    LR 1.2e-3 by eq. 7), 5 steps under each of psum, ring and
@@ -63,8 +79,8 @@
    skipped) fail that gate; the first step's exchanged gradients agree
    with dist.all_reduce's.
 
-Launch counts are set to 0 just before the serve, the prefill, the
-training runs and the LM step and training runs and read just after; each dp rank does the same around its
+Launch counts are set to 0 just before each serve, each counted prefill,
+the training runs and the LM step and training runs and read just after; each dp rank does the same around its
 steps under each algorithm. Any failed check raises, and the script exits non-zero.
 The last two lines are the kernels' JSON line and the device line. It
 exits non-zero, printing no result, when there is no CUDA device.
@@ -108,6 +124,7 @@ from repro_torch.kernels import swa_attention as swa_kernel  # noqa: E402
 from repro_torch.launch import explicit_allreduce as dp  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import layers as mlayers  # noqa: E402
+from repro_torch.models import moe as moe_module  # noqa: E402
 from repro_torch.models import spec as pspec  # noqa: E402
 from repro_torch.models.registry import build_model, decode_window  # noqa: E402
 from repro_torch.optim import adamw, sgd, warmup_cosine  # noqa: E402
@@ -237,6 +254,41 @@ DP_UPDATE_LIMIT = 0.1
 # against each other): max |a - b| / max |b|.
 DP_F32_LIMIT = 1e-5
 DP_FAULTS = ("not_divided", "no_all_gather")
+# The MoE and VLM decoder families at full published width (moe_serve and
+# vlm phases), each served as the qwen2.5-3b cell is: SERVE, and a prefill
+# of PREFILL_SHAPE held against the plain versions under the bf16 contract
+# (relative max error < 0.08, argmax agreement > 0.95). Set before the
+# first run from this reasoning. Kernels and plain versions differ only in
+# rmsnorm's rounding (an occasional bf16 ulp) and attention's (P split
+# hi + lo against f32), as on qwen2.5-3b, where the prefill read 0.9517;
+# every GEMM sees the same inputs in both runs until those differences
+# reach it. The MoE adds routing: its router logits are bf16 values, so a
+# perturbed hidden state can move an assignment across the 8th/9th place.
+# The reference's expert weights are drawn with a fan-in of E x D (the
+# "experts" axis is not the stacked "layers" axis), so at the init an
+# expert's output is about 1e-3 of the residual stream and a flipped
+# choice moves the logits far less than the attention differences do: the
+# same contract is expected to hold, and the phase reports the flipped
+# routing choices in the first and last layer beside it.
+MOE_ARCH, VLM_ARCH = "qwen3-moe-30b-a3b", "qwen2-vl-2b"
+MOE_PARAMS, VLM_PARAMS = 30_532_110_336, 1_777_088_000  # param_count() of each
+# Decode against prefill for the MoE at the reference's capacity factor
+# for that check (tests/test_decode_consistency.py): at the config's 1.25
+# a [2, 1024] prefill has C = 80 slots an expert and drops assignments
+# while one-token decode never does. The gate is decode_gate's, over the
+# first CONTROL_POSITIONS positions, with both faulty-cache controls.
+MOE_DECODE_CF = 8.0
+# The VLM's control: the same weights and tokens through the config with
+# mrope=False. Text rows keep their relative offsets (RoPE sees only
+# differences), but the 256 patch rows lose their grid coordinates and
+# every text row sees the patches at other offsets, so a quarter of the
+# rows and their attention change; that must fail the contract, or
+# M-RoPE is not in effect.
+# aten ops of a serving step, for its device time by group (op_group);
+# GEMMs are told apart by their operands' shapes
+DISPATCH_OPS = ("aten::sort", "aten::argsort", "aten::searchsorted",
+                 "aten::gather", "aten::topk")
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
 
 
 def check(ok: bool, what: str) -> None:
@@ -505,6 +557,12 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
     rms_err = max(rms_compare(gen, (SERVE["batch"], cfg.d_model), bf16),
                   rms_compare(gen, (b * s, cfg.d_model), bf16))
     swa_err = swa_compare(gen, b * cfg.n_heads, s, cfg.d_head, None, True, bf16)
+    for arch in (MOE_ARCH, VLM_ARCH):  # the MoE and VLM paths' shapes
+        c = get_config(arch)
+        rms_err = max(rms_err, rms_compare(gen, (SERVE["batch"], c.d_model), bf16),
+                      rms_compare(gen, (b * s, c.d_model), bf16))
+        swa_err = max(swa_err, swa_compare(gen, b * c.n_heads, s, c.d_head, None,
+                                           True, bf16))
     swa_compare(gen, b * cfg.n_heads, s, cfg.d_head, None, True, f32)
     for dtype in (f32, bf16):
         for shape in RMS_SWEEP:
@@ -532,7 +590,7 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
             for dt in (f32, bf16)}}
     torch.cuda.synchronize()
     print(f"kernel phase: the three kernels agree with their plain versions at "
-          f"{len(RMS_SWEEP) * 2 + 2} rmsnorm, {len(SWA_SWEEP) * 2 + 2} "
+          f"{len(RMS_SWEEP) * 2 + 6} rmsnorm, {len(SWA_SWEEP) * 2 + 4} "
           f"swa_attention and {2 + 2 * len(SGD_SWEEP) + 3} fused_sgd_update "
           f"cases; the rmsnorm and swa_attention Functions' gradients agree "
           f"with autograd of the plain versions at 4 cases each "
@@ -554,7 +612,7 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
 
 
 # ------------------------------------------------------------- main path --
-def serve_phase(cfg, params) -> dict:
+def serve_phase(cfg, params, label: str = "serve") -> dict:
     # warm-up at a tiny length (cuBLAS handles, allocator), not counted
     serve(cfg, batch=SERVE["batch"], prompt_len=4, new_tokens=2,
           params=params, device=DEVICE, log=False)
@@ -573,7 +631,7 @@ def serve_phase(cfg, params) -> dict:
            "rmsnorm_launches_per_step": counts["rmsnorm"] / steps,
            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
            "launches": counts, "first_row": tokens[0, :8].tolist()}
-    print("serve phase: " + json.dumps(out), flush=True)
+    print(f"{label} phase: " + json.dumps(out), flush=True)
     check(tokens.shape == (SERVE["batch"], SERVE["new_tokens"]),
           f"serve tokens shape {tokens.shape}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
@@ -635,24 +693,39 @@ def decode_gate(r: dict) -> bool:
             and r["argmax_agree"] >= DECODE_AGREE_MIN)
 
 
+def prefill_vs_plain(model, params, batch, window: int | None = None) -> dict:
+    """A counted prefill through the kernels (time, launches), then the
+    same prefill through the plain versions: the bf16 contract's readings."""
+    prefill = make_prefill(model, window=window, device=DEVICE)
+    prefill(params, {k: v[:, :64] for k, v in batch.items()})  # warm-up
+    ops.reset_launch_counts()
+    t0 = sync_time()
+    logits = prefill(params, batch)
+    seconds = sync_time() - t0
+    counts = ops.launch_counts()
+    with plain_versions():
+        plain = prefill(params, batch)
+    b, s = batch["tokens"].shape
+    return {"logits": logits, "plain": plain, "seconds": seconds,
+            "tokens_per_s": b * s / seconds, "launches": counts,
+            "rel_err_vs_plain": rel_err(logits, plain),
+            "argmax_agree_vs_plain": float((logits.argmax(-1) == plain.argmax(-1))
+                                           .float().mean())}
+
+
+def contract(r: dict) -> bool:
+    """The bf16 serving contract of tests/test_decode_consistency.py."""
+    return r["rel_err_vs_plain"] < 0.08 and r["argmax_agree_vs_plain"] > 0.95
+
+
 def prefill_phase(cfg, model, params) -> dict:
     b, s = PREFILL_SHAPE
     tokens = torch.as_tensor(TokenStream(cfg.vocab_size, s, seed=5).batch(0, b)["tokens"],
                              device=DEVICE)
     window = decode_window(cfg, s)
-    prefill = make_prefill(model, window=window, device=DEVICE)
-    prefill(params, {"tokens": tokens[:, :64]})  # warm-up, not counted
-    ops.reset_launch_counts()
-    t0 = sync_time()
-    logits = prefill(params, {"tokens": tokens})
-    seconds = sync_time() - t0
-    counts = ops.launch_counts()
-    # the same prefill through the plain versions
-    with plain_versions():
-        plain = prefill(params, {"tokens": tokens})
-    err_plain = rel_err(logits, plain)
-    agree_plain = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
-    del plain
+    res = prefill_vs_plain(model, params, {"tokens": tokens}, window)
+    logits, counts = res.pop("logits"), res["launches"]
+    del res["plain"]
 
     # step-by-step decode over the same prompt, then the faulty controls
     decode = make_decode_step(model, window=window, device=DEVICE)
@@ -661,10 +734,7 @@ def prefill_phase(cfg, model, params) -> dict:
                                      CONTROL_POSITIONS, fault=f)
                 for f in CONTROL_FAULTS}
 
-    out = {"shape": [b, s], "seconds": seconds, "tokens_per_s": b * s / seconds,
-           "launches": counts, "rel_err_vs_plain": err_plain,
-           "argmax_agree_vs_plain": agree_plain,
-           "decode_vs_prefill": sound,
+    out = {"shape": [b, s], **res, "decode_vs_prefill": sound,
            "decode_vs_prefill_faulty_controls": controls}
     print("prefill phase: " + json.dumps(out), flush=True)
     check(counts == {"rmsnorm": 2 * cfg.n_layers + 1,
@@ -675,9 +745,8 @@ def prefill_phase(cfg, model, params) -> dict:
     check(sound["last_shape"] == [b, 1, cfg.vocab_size],
           f"decode logits {sound['last_shape']}")
     check(sound["finite"], "decode logits finite at every step")
-    # bf16 serving contract of tests/test_decode_consistency.py
-    check(err_plain < 0.08 and agree_plain > 0.95,
-          f"kernels vs plain prefill: rel err {err_plain}, argmax {agree_plain}")
+    check(contract(res), f"kernels vs plain prefill: rel err "
+          f"{res['rel_err_vs_plain']}, argmax {res['argmax_agree_vs_plain']}")
     check(decode_gate(sound) and decode_gate(sound["head"]),
           f"decode vs prefill: {sound}")
     # each half of the gate on its own must fail each faulty control
@@ -729,6 +798,251 @@ def profile_phase(cfg, model, params) -> dict:
     out = {"decode_step": device_profile(lambda: decode(params, cache, batch), 8),
            "prefill": device_profile(lambda: prefill(params, {"tokens": tokens}), 2)}
     print("profile phase: " + json.dumps(out), flush=True)
+    return out
+
+
+# ------------------------------------------------------ moe and vlm --
+def init_full(cfg, label: str):
+    """The model and its random bf16 weights at full width, from a seeded
+    CUDA generator, with the draw's time and peak memory."""
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = sync_time()
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    seconds = sync_time() - t0
+    n = sum(t.numel() for t in pspec.flatten(params).values())
+    out = {"config": cfg.name, "n_params": n, "init_seconds": seconds,
+           "init_peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "weight_bytes": sum(t.numel() * t.element_size()
+                               for t in pspec.flatten(params).values())}
+    print(f"{label}: {n:,} parameters drawn in {seconds:.1f} s, peak "
+          f"{out['init_peak_memory_bytes'] / 1e9:.1f} GB", flush=True)
+    return model, params, out
+
+
+@contextlib.contextmanager
+def recording_routes(into: list):
+    """Record each moe_ffn call's expert choices (top-k ids [B, S, K], as
+    moe_ffn computes them from its input) in call order."""
+    inner = moe_module.moe_ffn
+
+    def recorded(cfg, p, x, sh):
+        logits = torch.einsum("bsd,de->bse", x, p["router"].to(x.dtype)).float()
+        into.append(moe_module._top_k(torch.softmax(logits, -1), cfg.top_k)[1])
+        return inner(cfg, p, x, sh)
+
+    moe_module.moe_ffn = recorded
+    try:
+        yield
+    finally:
+        moe_module.moe_ffn = inner
+
+
+def route_flips(a: torch.Tensor, b: torch.Tensor, n_experts: int) -> dict:
+    """Tokens whose top-k sets differ, and choices in one set but not the
+    other, between two [B, S, K] expert-id tensors."""
+    one = lambda e: F.one_hot(e.reshape(-1, e.shape[-1]), n_experts).sum(1)  # noqa: E731
+    shared = torch.minimum(one(a), one(b)).sum(-1)
+    k = a.shape[-1]
+    return {"tokens": int((shared < k).sum()), "choices": int((k - shared).sum()),
+            "of_tokens": int(shared.numel())}
+
+
+def op_group(cfg, name: str, shapes) -> str:
+    """The group of an aten op of a serving step (``shapes``: its
+    operands'). A GEMM's second operand tells its origin: [.., V, D] or
+    [.., D, V] the logits, [E, D, F] or [E, F, D] the experts, [D, F] or
+    [F, D] a dense MLP, [D, E] the router."""
+    if name in GEMM_OPS:
+        w = list(shapes[1]) if len(shapes) > 1 and shapes[1] else []
+        if cfg.vocab_size in w:
+            return "lm_logits"
+        ffn = w[-2:] in ([cfg.d_model, cfg.d_ff], [cfg.d_ff, cfg.d_model])
+        if ffn and cfg.is_moe and len(w) >= 3 and w[-3] == cfg.n_experts:
+            return "expert_einsums"
+        if ffn and not cfg.is_moe:
+            return "mlp"
+        if cfg.is_moe and w[-2:] == [cfg.d_model, cfg.n_experts]:
+            return "dispatch_combine"  # the router's product
+        return "attention"  # projections, decode's q.k and p.v products
+    if name in DISPATCH_OPS:
+        return "dispatch_combine"
+    if name.startswith(("aten::index", "aten::embedding")):
+        return "index"
+    return "elementwise"
+
+
+def op_groups(cfg, fn, n: int) -> dict:
+    """Device time per call by group: each aten op's own kernels (the
+    profiler's self device time, operand shapes recorded), and the
+    hand-written kernels, which no aten op launches, by kernel name; the
+    device time left over is "unattributed"."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    sums: dict[str, float] = {}
+    busy = 0.0
+    for e in prof.key_averages(group_by_input_shape=True):
+        us = e.self_device_time_total
+        if getattr(e, "is_user_annotation", False) or us <= 0:
+            continue
+        if e.device_type == DeviceType.CUDA:
+            busy += us
+            if "rmsnorm" in e.key or "swa_attention" in e.key:
+                sums["kernels"] = sums.get("kernels", 0.0) + us
+        else:
+            group = op_group(cfg, e.key, e.input_shapes)
+            sums[group] = sums.get(group, 0.0) + us
+    sums["unattributed"] = busy - sum(sums.values())
+    return {g: us / n / 1e3 for g, us in sorted(sums.items())}
+
+
+def moe_serve_phase(smi: str) -> dict:
+    cfg = get_config(MOE_ARCH)
+    model, params, out = init_full(cfg, MOE_ARCH)
+    check(out["n_params"] == MOE_PARAMS == cfg.param_count(),
+          f"{MOE_ARCH} at full width: {out['n_params']} parameters")
+    out["serve"] = serve_phase(cfg, params, "moe_serve")
+    out["serve_peak_memory_bytes"] = out["serve"]["peak_memory_bytes"]
+
+    # prefill at the config's capacity factor, kernels against plain
+    b, s = PREFILL_SHAPE
+    tokens = torch.as_tensor(TokenStream(cfg.vocab_size, s, seed=5).batch(0, b)["tokens"],
+                             device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    r = prefill_vs_plain(model, params, {"tokens": tokens})
+    logits, plain = r.pop("logits"), r.pop("plain")
+    prefill = make_prefill(model, device=DEVICE)
+    kernel_routes, plain_routes = [], []
+    with recording_routes(kernel_routes):
+        again = prefill(params, {"tokens": tokens})
+    with plain_versions(), recording_routes(plain_routes):
+        prefill(params, {"tokens": tokens})
+    r["repeat_identical"] = bool(torch.equal(again, logits))
+    r["routing_flips_vs_plain"] = {
+        "layer_0": route_flips(kernel_routes[0], plain_routes[0], cfg.n_experts),
+        "last_layer": route_flips(kernel_routes[-1], plain_routes[-1], cfg.n_experts),
+        "all_layers": route_flips(torch.stack(kernel_routes), torch.stack(plain_routes),
+                                  cfg.n_experts)}
+    r["capacity_factor"] = cfg.capacity_factor
+    r["capacity"] = moe_module.group_capacity(s, cfg)
+    finite = bool(torch.isfinite(logits).all())
+    del logits, plain, again, kernel_routes, plain_routes
+    out["prefill"] = r
+
+    # decode against prefill at the reference's capacity factor
+    cfg8 = dataclasses.replace(cfg, capacity_factor=MOE_DECODE_CF)
+    model8 = build_model(cfg8)
+    logits8 = make_prefill(model8, device=DEVICE)(params, {"tokens": tokens})
+    decode = make_decode_step(model8, device=DEVICE)
+    sound = decode_vs_prefill(decode, model8, params, tokens, logits8, CONTROL_POSITIONS)
+    controls = {f: decode_vs_prefill(decode, model8, params, tokens, logits8,
+                                     CONTROL_POSITIONS, fault=f)
+                for f in CONTROL_FAULTS}
+    del logits8
+    out["decode_vs_prefill"] = {"capacity_factor": MOE_DECODE_CF, **sound}
+    out["decode_vs_prefill_faulty_controls"] = controls
+    out["prefill_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+
+    # moe_ffn at the decode shape and at the prefill shape may not wait
+    # on the host
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    p0 = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    xs = {"decode": randn(gen, (SERVE["batch"], 1, cfg.d_model), torch.bfloat16),
+          "prefill": randn(gen, (b, s, cfg.d_model), torch.bfloat16)}
+    torch.cuda.synchronize()
+    synced = {}
+    for where, x in xs.items():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y, aux = moe_module.moe_ffn(cfg, p0, x, mlayers.NO_SHARD)
+            synced[where] = False
+        except RuntimeError as e:
+            synced[where] = str(e)[:200]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    out["moe_ffn_waits_on_host"] = synced
+
+    # where the time goes: one prefill and one decode step
+    decode = make_decode_step(model, device=DEVICE)
+    cache = pspec.init_params(None, model.cache_specs(
+        InputShape("p", SERVE["prompt_len"], SERVE["batch"], "decode")), DEVICE)
+    step_batch = {"tokens": torch.zeros((SERVE["batch"], 1), dtype=torch.int32,
+                                        device=DEVICE),
+                  "pos": torch.full((SERVE["batch"],), SERVE["prompt_len"] // 2,
+                                    dtype=torch.int32, device=DEVICE)}
+    one_decode = lambda: decode(params, cache, step_batch)  # noqa: E731
+    one_prefill = lambda: prefill(params, {"tokens": tokens})  # noqa: E731
+    out["profile"] = {
+        "decode_step": {**device_profile(one_decode, 4),
+                        "groups_ms_per_call": op_groups(cfg, one_decode, 2)},
+        "prefill": {**device_profile(one_prefill, 2),
+                    "groups_ms_per_call": op_groups(cfg, one_prefill, 1)}}
+    print(f"moe_serve phase [{smi}]: " + json.dumps(out), flush=True)
+
+    per_step = 2 * cfg.n_layers + 1
+    check(r["launches"] == {"rmsnorm": per_step, "swa_attention": cfg.n_layers,
+                            "fused_sgd_update": 0}, f"MoE prefill launches {r['launches']}")
+    check(finite, "MoE prefill logits finite")
+    check(contract(r), f"MoE kernels vs plain prefill: rel err {r['rel_err_vs_plain']}, "
+          f"argmax {r['argmax_agree_vs_plain']}")
+    check(sound["finite"] and sound["last_shape"] == [b, 1, cfg.vocab_size],
+          f"MoE decode logits {sound['last_shape']}")
+    check(decode_gate(sound), f"MoE decode vs prefill: {sound}")
+    for fault, c in controls.items():
+        check(c["argmax_agree"] < DECODE_AGREE_MIN and c["rel_err_all"] >= 0.08,
+              f"MoE decode vs prefill gate passed the faulty control {fault}: {c}")
+    check(synced == {"decode": False, "prefill": False},
+          f"moe_ffn waited on the host: {synced}")
+    peak = max(out["init_peak_memory_bytes"], out["serve_peak_memory_bytes"],
+               out["prefill_peak_memory_bytes"])
+    check(peak < 80e9, f"MoE peak memory {peak}")
+    out["launches"] = {k: out["serve"]["launches"][k] + r["launches"][k]
+                       for k in r["launches"]}
+    return out
+
+
+def vlm_phase(smi: str) -> dict:
+    cfg = get_config(VLM_ARCH)
+    model, params, out = init_full(cfg, VLM_ARCH)
+    check(out["n_params"] == VLM_PARAMS == cfg.param_count(),
+          f"{VLM_ARCH} at full width: {out['n_params']} parameters")
+    b, s = PREFILL_SHAPE
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    batch = {"tokens": torch.as_tensor(TokenStream(cfg.vocab_size, s, seed=5)
+                                       .batch(0, b)["tokens"], device=DEVICE),
+             # at the embedding's scale (its init std is 1 / sqrt(d_model))
+             "patch_embeds": randn(gen, (b, cfg.n_frontend_tokens, cfg.d_model),
+                                   torch.bfloat16, cfg.d_model ** -0.5)}
+    torch.cuda.reset_peak_memory_stats()
+    r = prefill_vs_plain(model, params, batch)
+    logits, plain = r.pop("logits"), r.pop("plain")
+    finite = bool(torch.isfinite(logits).all())
+    rope = build_model(dataclasses.replace(cfg, mrope=False))
+    ctl = make_prefill(rope, device=DEVICE)(params, batch)
+    control = {"rel_err_vs_plain": rel_err(ctl, plain),
+               "argmax_agree_vs_plain": float((ctl.argmax(-1) == plain.argmax(-1))
+                                              .float().mean())}
+    del logits, plain, ctl
+    r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    prefill = make_prefill(model, device=DEVICE)
+    r["profile"] = {**device_profile(lambda: prefill(params, batch), 2),
+                    "groups_ms_per_call": op_groups(cfg, lambda: prefill(params, batch), 1)}
+    out.update(prefill=r, mrope_off_control=control)
+    out["serve"] = serve_phase(cfg, params, "vlm_serve")
+    print(f"vlm phase [{smi}]: " + json.dumps(out), flush=True)
+    check(r["launches"] == {"rmsnorm": 2 * cfg.n_layers + 1,
+                            "swa_attention": cfg.n_layers, "fused_sgd_update": 0},
+          f"VLM prefill launches {r['launches']}")
+    check(finite, "VLM prefill logits finite")
+    check(contract(r), f"VLM kernels vs plain prefill: rel err {r['rel_err_vs_plain']}, "
+          f"argmax {r['argmax_agree_vs_plain']}")
+    check(not contract(control), f"VLM with mrope=False passed the contract: {control}")
+    out["launches"] = {k: out["serve"]["launches"][k] + r["launches"][k]
+                       for k in r["launches"]}
     return out
 
 
@@ -1358,9 +1672,15 @@ def main() -> int:
     served = serve_phase(cfg, params)
     prefilled = prefill_phase(cfg, model, params)
     profile_phase(cfg, model, params)
-    del model, params  # the trainer's peak memory is its own
+    del model, params  # each later model's peak memory is its own
     torch.cuda.empty_cache()
     print(f"serving phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    moe = moe_serve_phase(smi)
+    torch.cuda.empty_cache()
+    print(f"moe_serve phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    vlm = vlm_phase(smi)
+    torch.cuda.empty_cache()
+    print(f"vlm phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     trained = train_phase()
     print(f"train phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     torch.cuda.empty_cache()  # the LM trainer needs most of the card
@@ -1381,9 +1701,16 @@ def main() -> int:
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": tpu[name], "tpu_counterpart": f"{tpu[name]} {name}",
             "launches": (served["launches"][name] + prefilled["launches"][name]
+                         + moe["launches"][name] + vlm["launches"][name]
                          + lm_trained["launches"][name]),
             "launches_per_decode_step": served["launches"][name] / served["decode_steps"],
             "launches_per_prefill": prefilled["launches"][name],
+            "launches_per_moe_decode_step": (moe["serve"]["launches"][name]
+                                             / moe["serve"]["decode_steps"]),
+            "launches_per_moe_prefill": moe["prefill"]["launches"][name],
+            "launches_per_vlm_prefill": vlm["prefill"]["launches"][name],
+            "launches_per_vlm_decode_step": (vlm["serve"]["launches"][name]
+                                             / vlm["serve"]["decode_steps"]),
             "launches_lm_train": lm_trained["launches"][name],
             "launches_per_lm_train_step": lm_trained["launches"][name] / lm_trained["steps"],
             "backward_max_abs_err": k["backward_max_abs_err"],

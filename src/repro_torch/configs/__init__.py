@@ -1,8 +1,8 @@
 """Config registry of the port: ``--arch <id>`` resolution.
 
-A copy of ``repro.configs`` restricted to the dense decoder-only configs
-that the port serves; the other families join as their models are ported
-(see ROADMAP.md).
+A copy of ``repro.configs`` restricted to the decoder-only configs that the
+port builds (dense, MoE and the VLM backbone); the other families join as
+their models are ported (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -10,8 +10,12 @@ import importlib
 
 _ARCH_MODULES = {
     "qwen2.5-3b": "repro_torch.configs.qwen25_3b",
+    "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1p8b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "gemma-2b": "repro_torch.configs.gemma_2b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "qwen2.5-14b": "repro_torch.configs.qwen25_14b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -1,5 +1,5 @@
 """Architecture configuration system (the port's copy of
-``repro.configs.base``; ``active_param_count`` comes with the MoE slice).
+``repro.configs.base``).
 
 One frozen dataclass covers every assigned family (dense / moe / ssm /
 hybrid / vlm / audio).  Each ``configs/<id>.py`` exports ``CONFIG`` with the
@@ -91,6 +91,19 @@ class ModelConfig:
         from repro_torch.models.registry import build_model
         from repro_torch.models import spec as pspec
         return pspec.n_params(build_model(self).param_specs())
+
+    def active_param_count(self) -> int:
+        """Params active per token (MoE counts top_k of n_experts)."""
+        from repro_torch.models.registry import build_model
+        from repro_torch.models import spec as pspec
+        model = build_model(self)
+        total = pspec.n_params(model.param_specs())
+        if not self.is_moe:
+            return total
+        # subtract inactive expert weights
+        expert = pspec.n_params(model.expert_param_specs())
+        inactive = expert * (1 - self.top_k / self.n_experts)
+        return int(total - inactive)
 
 
 def reduced(cfg: ModelConfig, **overrides) -> ModelConfig:

@@ -39,7 +39,9 @@ def _check_params(params: dict, device: torch.device) -> None:
 
 def make_prefill(model, sh: Sharder = NO_SHARD, window: int | None = None,
                  device="cuda"):
-    """(params, batch {tokens [B, S]}) -> logits [B, S, V] f32."""
+    """(params, batch {tokens [B, S]}) -> logits [B, S, V] f32. For a VLM
+    the batch may also hold patch_embeds [B, P, D], written over the first
+    P embedded rows (the vision stub)."""
     dev = resolve_device(device)
 
     def prefill(params, batch):

@@ -4,7 +4,11 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --batch 4 --prompt-len 128 --new-tokens 32
 
-Runs on the GPU; ``--device cpu`` runs the plain versions on the CPU.
+Any ported decoder-only ``--arch``: dense, MoE (qwen3-moe-30b-a3b, whose
+bf16 weights take 62.3 GB) or the VLM backbone (qwen2-vl-2b, served on
+text tokens: like the reference's loop, this one passes no patch
+embeddings). Runs on the GPU; ``--device cpu`` runs the plain versions on
+the CPU.
 """
 from __future__ import annotations
 

@@ -62,13 +62,28 @@ def _rope_freqs_on(d_half: int, theta: float, device: torch.device):
     return torch.from_numpy(rope_freqs(d_half, theta)).to(device)
 
 
-def apply_rope(x, positions, theta: float):
-    """Rotate ``x [B, S, H, D]`` by integer ``positions [B, S]``.
+def apply_rope(x, positions, theta: float,
+               sections: tuple[int, ...] | None = None):
+    """Rotate ``x [B, S, H, D]`` by integer ``positions``.
 
-    M-RoPE (Qwen2-VL's ``sections``) comes with the VLM slice."""
+    positions: ``[B, S]`` for standard RoPE, or ``[B, S, 3]`` for M-RoPE
+    with ``sections`` (t, h, w) splitting the half-dim (Qwen2-VL style):
+    the first ``sections[0]`` frequencies turn with the t coordinate, the
+    next ``sections[1]`` with h and the last ``sections[2]`` with w.
+    """
     d_half = x.shape[-1] // 2
     freqs = _rope_freqs_on(d_half, theta, x.device)
-    ang = positions[..., None].float() * freqs                # [B,S,d_half]
+    if sections is None:
+        ang = positions[..., None].float() * freqs            # [B,S,d_half]
+    else:
+        if positions.dim() != 3 or sum(sections) != d_half:
+            raise ValueError(f"M-RoPE: positions {tuple(positions.shape)} "
+                             f"and sections {sections} for d_half {d_half}")
+        parts, off = [], 0
+        for i, sec in enumerate(sections):
+            parts.append(positions[..., i, None].float() * freqs[off:off + sec])
+            off += sec
+        ang = torch.cat(parts, dim=-1)                        # [B,S,d_half]
     cos = torch.cos(ang)[:, :, None, :]                       # [B,S,1,d_half]
     sin = torch.sin(ang)[:, :, None, :]
     xf1, xf2 = x[..., :d_half].float(), x[..., d_half:].float()

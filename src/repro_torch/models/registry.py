@@ -1,7 +1,8 @@
 """Model factory: config -> model object (torch twin of ``repro.models.registry``).
 
-The decoder-only transformer family and the ResNet are ported; the other
-families come in later slices (see ROADMAP.md).
+The decoder-only transformer family (dense, MoE and the VLM backbone) and
+the ResNet are ported; the ssm, hybrid and audio families come in later
+slices (see ROADMAP.md).
 """
 from __future__ import annotations
 

@@ -59,6 +59,14 @@ def n_params(tree: dict) -> int:
     return sum(math.prod(s.shape) for s in flatten(tree).values())
 
 
+# A leaf whose f32 draw would hold more elements than this is drawn one
+# slice of its leading dim at a time, with the same std: a qwen3-moe-30b-a3b
+# expert leaf [48, 128, 2048, 768] would otherwise need a 38.7 GB f32
+# transient beside the bf16 weights already drawn. Smaller leaves draw
+# the whole leaf at once.
+_MAX_DRAW = 1 << 31
+
+
 def _init_one(gen: torch.Generator, s: TensorSpec, device) -> torch.Tensor:
     if s.init == "zeros":
         return torch.zeros(s.shape, dtype=s.dtype, device=device)
@@ -77,8 +85,14 @@ def _init_one(gen: torch.Generator, s: TensorSpec, device) -> torch.Tensor:
         std = s.scale / math.sqrt(fan_in)
     else:
         raise ValueError(f"unknown init {s.init!r}")
-    x = torch.randn(s.shape, generator=gen, device=device, dtype=torch.float32)
-    return (x * std).to(s.dtype)
+    if math.prod(s.shape) <= _MAX_DRAW:
+        x = torch.randn(s.shape, generator=gen, device=device, dtype=torch.float32)
+        return (x * std).to(s.dtype)
+    out = torch.empty(s.shape, dtype=s.dtype, device=device)
+    for part in out:
+        part.copy_(torch.randn(part.shape, generator=gen, device=device,
+                               dtype=torch.float32) * std)
+    return out
 
 
 class FlatTree(dict):

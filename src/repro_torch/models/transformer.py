@@ -1,22 +1,27 @@
-"""Decoder-only transformer, dense GQA path (torch twin of
-``repro.models.transformer``): qwen2.5-*, gemma and h2o-danube.
+"""Decoder-only transformer family (torch twin of
+``repro.models.transformer``): dense GQA (qwen2.5-*, gemma, h2o-danube),
+MoE (qwen3-moe, dbrx) and the VLM backbone (qwen2-vl: M-RoPE and the
+vision stub, precomputed patch embeddings written over the first
+``n_frontend_tokens`` rows).
 
 Parameters are the reference's tree as nested dicts of tensors, with the
 per-layer weights stacked along a leading ``[n_layers]`` dim; the layer
 loop is a Python loop over that dim (a stacked leaf may also come as a
 tuple of per-layer tensors, the form in which training differentiates
-it). MoE and the vision front end come in later slices (see ROADMAP.md).
+it).
 """
 from __future__ import annotations
 
 import functools
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.spec import TensorSpec as TS, init_flat, init_params
 
 
@@ -79,8 +84,9 @@ def attention(cfg: ModelConfig, p, x, positions, sh, *,
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
     if cfg.rope_theta:
-        q = L.apply_rope(q, positions, cfg.rope_theta)
-        k = L.apply_rope(k, positions, cfg.rope_theta)
+        sections = _mrope_sections(cfg)
+        q = L.apply_rope(q, positions, cfg.rope_theta, sections)
+        k = L.apply_rope(k, positions, cfg.rope_theta, sections)
     q = sh(q, "batch", "seq", "heads", "head_dim")
     # Padded heads (pad_heads_to) keep the real heads' q->kv mapping through
     # an explicit gather and are hard-masked to zero output.
@@ -106,31 +112,35 @@ def attention(cfg: ModelConfig, p, x, positions, sh, *,
     return torch.einsum("bshk,hkd->bsd", attn, p["wo"].to(dt))
 
 
+def _mrope_sections(cfg: ModelConfig) -> tuple[int, int, int] | None:
+    """M-RoPE's (t, h, w) split of the half-dim: Qwen2-VL's (16, 24, 24)
+    on d_half 64, scaled to other head dims as the reference scales it."""
+    if not cfg.mrope:
+        return None
+    half = cfg.d_head // 2
+    hw = (half - half // 4) // 2
+    return (half - 2 * hw, hw, hw)
+
+
 def _layer_params(tree: dict, i: int) -> dict:
     return {k: (_layer_params(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
 
 
 class TransformerModel:
-    """Dense decoder-only LM.
+    """dense | moe | vlm decoder-only LM.
 
     Two dtypes. The compute dtype is that of the activations: bf16, fixed
     by ``embed_tokens`` as in the reference; every matmul weight and bias
     is cast to it at use. ``param_dtype`` is the dtype in which the matmul
-    weights and QKV biases are stored: bf16 for serving (cast once, so no
-    decode step casts them again), f32 for training (the f32 masters the
-    reference keeps, ``repro/models/spec.py``; ``init`` then returns one
-    FlatTree). Norm gains and the embedding tables are f32 either way.
+    weights (attention, MLP, MoE router and experts) and QKV biases are
+    stored: bf16 for serving (cast once, so no decode step casts them
+    again), f32 for training (the f32 masters the reference keeps,
+    ``repro/models/spec.py``; ``init`` then returns one FlatTree). Norm
+    gains and the embedding tables are f32 either way.
     """
 
     def __init__(self, cfg: ModelConfig, param_dtype: torch.dtype = torch.bfloat16):
-        if cfg.is_moe:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE is not ported yet (see ROADMAP.md)")
-        if cfg.frontend is not None or cfg.mrope:
-            raise NotImplementedError(
-                f"{cfg.name}: the vision front end and M-RoPE are not ported "
-                "yet (see ROADMAP.md)")
         self.cfg = cfg
         self.param_dtype = param_dtype
 
@@ -140,14 +150,20 @@ class TransformerModel:
         n, D, V = cfg.n_layers, cfg.d_model, cfg.vocab_size
         layer = {"ln1": _norm_specs(cfg, (n, D), ("layers", "embed")),
                  "attn": attn_specs(cfg, n, self.param_dtype),
-                 "ln2": _norm_specs(cfg, (n, D), ("layers", "embed")),
-                 "mlp": mlp_specs(cfg, n, self.param_dtype)}
+                 "ln2": _norm_specs(cfg, (n, D), ("layers", "embed"))}
+        if cfg.is_moe:
+            layer["moe"] = moe_lib.moe_specs(cfg, n, self.param_dtype)
+        else:
+            layer["mlp"] = mlp_specs(cfg, n, self.param_dtype)
         p = {"embed": TS((V, D), ("vocab", "embed"), init="embed"),
              "final_norm": _norm_specs(cfg, (D,), ("embed",)),
              "layers": layer}
         if not cfg.tie_embeddings:
             p["unembed"] = TS((V, D), ("vocab", "embed"), init="embed")
         return p
+
+    def expert_param_specs(self) -> dict:
+        return moe_lib.expert_only_specs(self.param_specs())
 
     def init(self, generator: torch.Generator, device) -> dict:
         """Random parameters, drawn from ``generator`` (on ``device``): one
@@ -158,16 +174,43 @@ class TransformerModel:
         return init_params(generator, self.param_specs(), device)
 
     # --------------------------------------------------------- positions ---
-    @staticmethod
-    def _positions(batch_size: int, seq_len: int, device):
-        pos = torch.arange(seq_len, dtype=torch.int32, device=device)[None, :]
-        return pos.expand(batch_size, seq_len)
+    def _positions(self, batch_size: int, seq_len: int, device):
+        cfg = self.cfg
+        if not cfg.mrope:
+            pos = torch.arange(seq_len, dtype=torch.int32, device=device)[None, :]
+            return pos.expand(batch_size, seq_len)
+        # M-RoPE: vision patches get (t=0, h, w) grid coords, text tokens get
+        # t = h = w = running position (Qwen2-VL §2.1).
+        P = min(cfg.n_frontend_tokens, seq_len)
+        g = max(1, math.isqrt(P))
+        i = np.arange(seq_len)
+        t = np.where(i < P, 0, i - P + g)
+        h = np.where(i < P, np.minimum(i, P - 1) // g, i - P + g)
+        w = np.where(i < P, np.minimum(i, P - 1) % g, i - P + g)
+        pos3 = torch.from_numpy(np.stack([t, h, w], axis=-1).astype(np.int32))
+        return pos3.to(device)[None].expand(batch_size, seq_len, 3)
+
+    def _decode_positions(self, pos):
+        """Rotary positions of one decode step at cache slots ``pos [B]``:
+        ``[B, 1]``, or ``[B, 1, 3]`` under M-RoPE, where every decode token
+        is text at ``pos - P + g`` on all three axes, as in the reference."""
+        cfg = self.cfg
+        if not cfg.mrope:
+            return pos[:, None]
+        P = cfg.n_frontend_tokens
+        txt = pos - P + max(1, math.isqrt(P))
+        return torch.stack([txt, txt, txt], dim=-1)[:, None]
 
     # ----------------------------------------------------------- embed -----
     def _embed(self, params, batch):
         cfg = self.cfg
         scale = math.sqrt(cfg.d_model) if cfg.name.startswith("gemma") else None
-        return L.embed_tokens(params["embed"], batch["tokens"], scale)
+        x = L.embed_tokens(params["embed"], batch["tokens"], scale)
+        if cfg.frontend == "vision" and "patch_embeds" in batch:
+            pe = batch["patch_embeds"].to(x.dtype)
+            P = min(pe.shape[1], x.shape[1])
+            x = torch.cat([pe[:, :P], x[:, P:]], dim=1)
+        return x
 
     def _unembed(self, params):
         return params["embed"] if self.cfg.tie_embeddings else params["unembed"]
@@ -180,21 +223,29 @@ class TransformerModel:
         x = x + attention(cfg, params_i["attn"], h, positions, sh,
                           window=window, cache=cache_i, pos=pos)
         h = L.apply_norm(cfg, x, params_i["ln2"])
-        return x + L.mlp(cfg, params_i["mlp"], h)
+        if cfg.is_moe:
+            ffn_out, aux = moe_lib.moe_ffn(cfg, params_i["moe"], h, sh)
+        else:
+            ffn_out, aux = L.mlp(cfg, params_i["mlp"], h), 0.0
+        return x + ffn_out, aux
 
     def forward(self, params, batch, sh=L.NO_SHARD, *, window=None):
-        """Teacher-forced logits over the whole sequence. Returns (logits, aux);
-        aux is 0.0 on the dense path."""
+        """Teacher-forced logits over the whole sequence. Returns (logits, aux):
+        aux is the MoE load-balance loss summed over the layers (a 0-d f32
+        tensor), 0.0 on the dense path. ``batch``: tokens [B, S], and for
+        the VLM optionally patch_embeds [B, P, D]."""
         cfg = self.cfg
         x = sh(self._embed(params, batch), "batch", "seq", "embed")
         positions = self._positions(*batch["tokens"].shape, x.device)
         window = window if window is not None else cfg.sliding_window
+        aux = 0.0
         for i in range(cfg.n_layers):
-            x = self._layer(_layer_params(params["layers"], i), x,
-                            positions, sh, window)
+            x, aux_i = self._layer(_layer_params(params["layers"], i), x,
+                                   positions, sh, window)
+            aux = aux + aux_i
         x = L.apply_norm(cfg, x, params["final_norm"])
         logits = L.lm_logits(x, self._unembed(params))
-        return sh(logits, "batch", "seq", "vocab"), 0.0
+        return sh(logits, "batch", "seq", "vocab"), aux
 
     def loss(self, params, batch, sh=L.NO_SHARD):
         """Mean next-token cross-entropy of ``batch`` {tokens, labels [B, S]}
@@ -228,12 +279,12 @@ class TransformerModel:
         cfg = self.cfg
         x = self._embed(params, batch)
         pos = batch["pos"].long()
-        positions = pos[:, None]
+        positions = self._decode_positions(pos)
         window = window if window is not None else cfg.sliding_window
         for i in range(cfg.n_layers):
-            x = self._layer(_layer_params(params["layers"], i), x,
-                            positions, sh, window,
-                            cache_i=(cache["k"][i], cache["v"][i]), pos=pos)
+            x, _ = self._layer(_layer_params(params["layers"], i), x,
+                               positions, sh, window,
+                               cache_i=(cache["k"][i], cache["v"][i]), pos=pos)
         x = L.apply_norm(cfg, x, params["final_norm"])
         logits = L.lm_logits(x, self._unembed(params))
         return logits, cache

@@ -54,7 +54,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.core.elastic", "repro_torch.collectives",
             "repro_torch.collectives.schedules", "repro_torch.collectives.dist",
             "repro_torch.launch.mesh", "repro_torch.launch.explicit_allreduce",
-            "repro_torch.launch.train"} <= set(names)
+            "repro_torch.launch.train", "repro_torch.models.moe",
+            "repro_torch.configs.qwen2_vl_2b", "repro_torch.configs.qwen3_moe_30b_a3b",
+            "repro_torch.configs.dbrx_132b", "repro_torch.configs.qwen25_14b"} <= set(names)
     loaded = _loaded_after("\n".join(f"import {n}" for n in names))
     assert "repro_torch" in loaded and "torch" in loaded
     assert _foreign(loaded) == []

@@ -42,6 +42,38 @@ def test_apply_rope(theta, dtype):
            1e-4 if dtype == "float32" else TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sections,d", [((2, 2, 2), 12), ((16, 24, 24), 128)])
+def test_apply_rope_mrope_sections(sections, d, dtype):
+    """M-RoPE: positions [B, S, 3] (t, h, w), the half-dim split by
+    ``sections``, against the reference; the grid coordinates of Qwen2-VL's
+    256 patches (t = 0, h and w up to 15) and text positions past them.
+    Also the reference's own case: ones rotated by (i, 2i, 3i)."""
+    rng = np.random.default_rng(9)
+    jx, tx = both(_normal(rng, 2, 40, 3, d), dtype)
+    pos = rng.integers(0, 300, (2, 40, 3)).astype(np.int32)
+    got = TL.apply_rope(tx, torch.from_numpy(pos), 1_000_000.0, sections)
+    assert got.dtype == tx.dtype
+    _close(got, JL.apply_rope(jx, jnp.asarray(pos), 1_000_000.0, sections),
+           1e-6 if dtype == "float32" else TOL[dtype])
+    if d == 12:
+        pos3 = np.stack([np.arange(4), np.arange(4) * 2, np.arange(4) * 3],
+                        axis=-1)[None].astype(np.int32)
+        ones = np.ones((1, 4, 1, 12), np.float32)
+        got = TL.apply_rope(torch.from_numpy(ones), torch.from_numpy(pos3),
+                            10_000.0, sections)
+        _close(got, JL.apply_rope(jnp.asarray(ones), jnp.asarray(pos3),
+                                  10_000.0, sections), 1e-6)
+
+
+def test_apply_rope_refuses_sections_that_do_not_split_the_half_dim():
+    x = torch.zeros(1, 4, 1, 12)
+    with pytest.raises(ValueError, match="M-RoPE"):
+        TL.apply_rope(x, torch.zeros(1, 4, 3, dtype=torch.int32), 1e4, (2, 2, 3))
+    with pytest.raises(ValueError, match="M-RoPE"):
+        TL.apply_rope(x, torch.zeros(1, 4, dtype=torch.int32), 1e4, (2, 2, 2))
+
+
 @pytest.mark.parametrize("n_rep", [1, 2, 4])
 def test_repeat_kv(n_rep):
     jk, tk = both(_normal(np.random.default_rng(1), 2, 5, 2, 8))

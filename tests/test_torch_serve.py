@@ -21,7 +21,8 @@ from repro_torch.launch.serve import main, serve
 from _torch_parity import patch_f32_embeddings
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma-2b", "h2o-danube-1.8b"])
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "gemma-2b", "h2o-danube-1.8b",
+                                  "qwen3-moe-30b-a3b", "qwen2-vl-2b"])
 def test_serve_tokens_identical_in_f32(monkeypatch, arch):
     patch_f32_embeddings(monkeypatch)
     jcfg, cfg = jax_smoke_config(arch), get_smoke_config(arch)
@@ -63,6 +64,14 @@ def test_serve_cli_on_cpu(capsys):
           "--new-tokens", "3", "--device", "cpu"])
     out = capsys.readouterr().out
     assert out.count("generated (2, 3)") == 1  # printed by serve, once
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "qwen2-vl-2b"])
+def test_serve_cli_on_cpu_moe_and_vlm(capsys, arch):
+    main(["--arch", arch, "--smoke", "--batch", "2", "--prompt-len", "6",
+          "--new-tokens", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.count("generated (2, 3)") == 1 and "sample:" in out
 
 
 def test_serve_takes_the_reference_keywords(capsys):

@@ -305,11 +305,59 @@ def test_loss_and_flat_grad_gate_fails_its_controls(arch, control, reference_gra
     if control == "labels_shifted":
         batch = dict(batch, labels=np.roll(batch["labels"], 1, axis=1))
     loss, grads = value_and_flat_grad(tm, params, _on_torch(batch))
+    ffn = "moe" if tm.cfg.is_moe else "mlp"
     if control == "one_layer_wo_zeroed":
-        tspec.views(grads, params.shapes())["layers"]["mlp"]["wo"][-1].zero_()
+        tspec.views(grads, params.shapes())["layers"][ffn]["wo"][-1].zero_()
     r = _gate(float(loss), grads.double().numpy(), want_loss, want, params.shapes())
     assert not _passes(r), r
-    assert r["flat"] > 0.5 if control == "labels_shifted" else r["leaf"] == 1.0
+    # an MoE's aux loss adds a gradient that does not depend on the labels
+    # (reached: flat 0.35 for qwen3-moe, 1.1 for the dense archs)
+    labels_flat_min = 0.25 if tm.cfg.is_moe else 0.5
+    assert r["flat"] > labels_flat_min if control == "labels_shifted" else r["leaf"] == 1.0
+
+
+# f32 (both packages' embed_tokens patched to f32): the same graph in
+# another summation order, about 1e-7 relative an op; set before the first
+# run with two orders of margin for 2 layers.
+F32_LOSS_REL, F32_FLAT_REL_L2, F32_LEAF_REL_L2 = 1e-5, 1e-4, 1e-3
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "qwen2-vl-2b"])
+def test_moe_and_vlm_loss_and_flat_grad_match_jax_in_f32(arch, monkeypatch):
+    """loss = cross-entropy + 0.01 x the MoE aux loss summed over the
+    layers, and its flat gradient (router and experts included), against
+    jax.value_and_grad of the reference; the VLM with patch embeddings and
+    M-RoPE."""
+    patch_f32_embeddings(monkeypatch)
+    cfg, jm, jparams, tm, params = _both_models(arch)
+    batch = _tokens(cfg, seq=32)
+    if cfg.frontend == "vision":
+        batch["patch_embeds"] = np.random.default_rng(4).standard_normal(
+            (4, cfg.n_frontend_tokens, cfg.d_model)).astype(np.float32) * 0.1
+    want_loss, want = jax.value_and_grad(lambda p: jm.loss(p, _on_jax(batch)))(jparams)
+    loss, grads = value_and_flat_grad(tm, params, _on_torch(batch))
+    _, aux = tm.forward(params, _on_torch(batch))
+    if cfg.is_moe:
+        assert float(aux) > cfg.n_layers * (1 - 1e-6)  # each layer's aux >= 1
+        logits, _ = tm.forward(params, _on_torch(batch))
+        ce = TL.softmax_cross_entropy(logits, _on_torch(batch)["labels"])
+        assert abs(float(loss) - float(ce + 0.01 * aux)) <= 1e-6 * float(loss)
+    r = _gate(float(loss), grads.double().numpy(), float(want_loss), _flat(want),
+              params.shapes())
+    assert (r["loss"] < F32_LOSS_REL and r["flat"] < F32_FLAT_REL_L2
+            and r["leaf"] < F32_LEAF_REL_L2), r
+    if cfg.is_moe:
+        router = tspec.views(grads, params.shapes())["layers"]["moe"]["router"]
+        assert float(router.abs().max()) > 0
+
+
+def test_train_cli_runs_the_moe_smoke_config():
+    """python -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --smoke
+    --device cpu: finite losses through the MoE's dispatch and aux loss."""
+    first, last = train.main(["--arch", "qwen3-moe-30b-a3b", "--smoke", "--steps", "4",
+                              "--m-per-worker", "2", "--seq", "16",
+                              "--log-every", "2", "--device", "cpu"])
+    assert np.isfinite(first) and np.isfinite(last)
 
 
 def test_loss_is_the_reference_formula():
