@@ -9,11 +9,14 @@
 3. kernel phase: holds each kernel against its plain PyTorch version on the
    card, at the main path's shapes and at the shape sweeps of
    tests/test_kernels.py (swa_attention in both dtype routes: bf16 on the
-   tensor cores, f32 on the CUDA cores), and times kernel, plain version
-   and the PyTorch library call that computes the same function
-   (yardstick only); and holds the gradients of the rmsnorm and
-   swa_attention autograd Functions (kernel forward, explicit backward
-   formula) against torch.autograd of the plain versions;
+   tensor cores, f32 on the CUDA cores; rmsnorm also with a gain per head,
+   w [G, D], at mamba2-780m's and jamba's gated-norm shapes), and times
+   kernel, plain version and the PyTorch library call that computes the
+   same function (yardstick only; for the [G, D] route two calls,
+   F.rms_norm then the product with 1 + w); and holds the gradients of
+   the rmsnorm (w [D] and [G, D]) and swa_attention autograd Functions
+   (kernel forward, explicit backward formula) against torch.autograd of
+   the plain versions;
 4. serve phase: qwen2.5-3b at full published width, random weights from a
    seeded CUDA generator, serve(batch=4, prompt_len=128, new_tokens=32);
    the rmsnorm kernel must run exactly 73 times per decode step;
@@ -38,7 +41,31 @@
    weights and inputs without M-RoPE as a control that must fail that
    contract, a profile of the prefill, and the serve of phase 4 (57
    rmsnorm launches a decode step);
-8. train phase: the elastic trainer on ResNet-110 at its full published
+8. ssm phase: mamba2-780m at full published width and depth (48 layers,
+   48 heads of 64, state 128, 857 M parameters, random from a seeded CUDA
+   generator): the serve of phase 4 (97 rmsnorm launches a decode step,
+   no swa_attention), a [2, 1024] prefill (97 rmsnorm launches, 48 of
+   them with the gated norm's [48, 64] weight) held against the plain
+   versions, decode against prefill over CONTROL_POSITIONS positions with
+   two faulty-state controls (every cache zeroed, the SSM states zeroed),
+   both in bf16 and with f32 activations, the gates on the f32 run
+   (SSM_GATED), a profile of a prefill and a decode step with the device
+   time by group; then training with f32 masters and AdamW: one step at
+   the initial weights through the kernels against the plain versions (in
+   f32 activations, gated with two controls; in bf16, the loss gated and
+   the gradient reported), 20 steps of 8 x 128 tokens with f32
+   activations (finite, falling losses, exactly 97 rmsnorm launches a step
+   and no fused_sgd_update) and 5 in bf16, with step time, tokens/s and
+   peak memory;
+9. hybrid phase: jamba-v0.1-52b at full published width cut to one
+   8-layer block of its 32 (7 mamba mixers of 128 heads, one attention
+   layer, 4 MoE FFNs of 16 experts top-2, 13.3 B parameters): a [2, 1024]
+   prefill (24 rmsnorm launches, 7 with the [128, 64] weight, and one
+   swa_attention) held against the plain versions, decode against
+   prefill at capacity factor 8 with the two faulty-state controls, both
+   gated in bf16 and with f32 activations (HYBRID_GATED), and the serve
+   of phase 4 (24 rmsnorm launches a decode step);
+10. train phase: the elastic trainer on ResNet-110 at its full published
    size (random weights from a seeded CUDA generator, CifarLike data of
    CIFAR-10's 50,000 images, 128 images per worker): the paper's Table 2
    pattern on one card, 20 steps at w = 4, stop, restart at w = 8 with
@@ -49,7 +76,7 @@
    trained state's gradients, one train step's loss and gradient on the
    card against the same step in f32 on the CPU, an exact-resume check
    (5 + 5 steps against 10) and a profile of the train step;
-9. lm_train phase: the dense LM trainer on qwen2.5-3b at full width and
+11. lm_train phase: the dense LM trainer on qwen2.5-3b at full width and
    depth, f32 master parameters in one flat buffer (random, from a seeded
    CUDA generator), bf16 compute, the reference trainer's defaults
    (AdamW, TokenStream, 8 sequences of 128 tokens, base LR 3e-4) on a
@@ -64,7 +91,7 @@
    of 2 steps, the f32 lm_logits products timed alone, and an exact-resume
    check at the smoke config (5 + 5 steps through the CheckpointStore
    against 10);
-10. dp phase: data-parallel ResNet-110 at full size through
+12. dp phase: data-parallel ResNet-110 at full size through
    ``launch.explicit_allreduce``: 4 ranks, each its own process with its
    own CUDA context on the one card, 128 images each (global batch 512,
    LR 1.2e-3 by eq. 7), 5 steps under each of psum, ring and
@@ -219,7 +246,7 @@ LM_RESUME = (5, 5)
 # one layer's mlp/wo gradient zeroed (that leaf's error is 1).
 LM_STEP_LIMITS = {"loss_rel_err": 1e-2, "flat_rel_err": 0.05,
                   "worst_leaf_rel_err": 0.1}
-LM_CONTROLS = ("labels_shifted", "one_layer_wo_zeroed")
+LM_CONTROLS = ("labels_shifted", "one_layer_zeroed")
 # kernel-name substrings of an LM train step's parts, for its profile
 LM_KERNEL_GROUPS = {
     "rmsnorm": ("rmsnorm",),
@@ -289,6 +316,56 @@ MOE_DECODE_CF = 8.0
 DISPATCH_OPS = ("aten::sort", "aten::argsort", "aten::searchsorted",
                  "aten::gather", "aten::topk")
 GEMM_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+# The SSM and hybrid families (ssm and hybrid phases). mamba2-780m at full
+# published width and depth; jamba-v0.1-52b at full published width, cut
+# to one 8-layer block of its 32 layers (its 51.5 B bf16 parameters, about
+# 103 GB, do not fit one 80 GB card): the block holds every layer kind of
+# the model (7 mamba mixers, 1 attention layer, 4 MoE and 4 dense FFNs).
+SSM_ARCH, HYBRID_ARCH = "mamba2-780m", "jamba-v0.1-52b"
+HYBRID_LAYERS = 8
+SSM_PARAMS, HYBRID_PARAMS = 857_219_328, 13_267_598_848  # param_count() of each
+# Decode against prefill: an SSM never reads pos, so the pos_lag control
+# would pass and prove nothing. The controls zero every cache before each
+# step, or only the SSM states (the conv windows and the KV cache kept).
+# Which runs the SSM and hybrid gates read. At the reference's init (A_log
+# 0, dt_bias 0, and a gated norm that gives every mixer's output an RMS of
+# about 1) each Mamba-2 mixer adds a fresh, rounding-sensitive term to the
+# residual stream, so rounding differences grow with depth, in the
+# reference as in the port. On the CPU (cpu_ssm_sensitivity.py, one
+# 256-token prompt through the same weights at full width) the
+# reference's own bf16 logits against its f32 logits read rel err 0.079,
+# 0.198, 0.264 and 0.381 and argmax 0.930, 0.891, 0.758 and 0.590 at 4, 8,
+# 12 and 24 layers; the port's read 0.118, 0.146, 0.238 and 0.373 and
+# 0.941, 0.902, 0.773 and 0.594; its f32 logits agree with the reference's
+# within 2.1e-4. On an H100 (NVIDIA H100 80GB HBM3, 700 W) a [2,1024]
+# mamba2-780m prefill through the kernels against the plain versions read
+# rel err 0.30 and argmax 0.71 in bf16, decode against prefill argmax
+# 0.35, and the plain route's bf16 train gradient lay 1.33 (flat relative
+# L2) from its f32 gradient, so 20 bf16 AdamW steps did not lower the loss.
+# So at 48 layers the bf16 readings cannot tell a right kernel from
+# rounding: the SSM gates read the same runs with f32 activations (the
+# embedding's rows kept in f32 and f32 caches; every rmsnorm call then
+# takes the kernel's f32 route, with [D] and [G, D] weights), where the
+# contract (0.08 / 0.95; decode_gate) and the LM trainer's step limits
+# (loss 1e-2, flat 0.05, worst per-layer leaf 0.1; the f32 step read
+# 8.5e-8, 1.5e-3 and 3.0e-3 on the H100) must hold, and the controls must
+# fail them; its bf16 runs, the path a user serves and trains, have their
+# launches and the bf16 step's loss gated and their agreement reported.
+# The hybrid's block of 7 mixers stays inside the bf16 contract on the
+# H100 (kernels vs plain 0.036 / 0.973, decode vs prefill 0.918 / 0.073),
+# so both its bf16 and its f32 runs are gated.
+SSM_GATED, HYBRID_GATED = ("f32",), ("bf16", "f32")
+SSM_CONTROL_FAULTS = ("no_cache", "ssm_state_zeroed")
+# The SSM trainer: the LM trainer's defaults (8 x 128 tokens, AdamW, base
+# LR 3e-4, warmup 5): 20 steps with f32 activations, gated on a falling
+# loss, then SSM_BF16_STEPS in bf16, the trainer's own compute, timed. At
+# this init the loss moves little in 20 steps (on the H100, a last-5 mean
+# 0.006 below the first loss with f32 activations, 0.002 above it in
+# bf16), so the f32 steps run with deterministic algorithms, and the loss
+# of a held-out batch must fall too (11.355 to 11.237 on the H100).
+SSM_TRAIN = dict(batch=8, seq=128, steps=20, base_lr=3e-4, warmup=5)
+SSM_BF16_STEPS = 5
+SSM_BF16_LOSS_LIMIT = 1e-2  # the bf16 step's loss, kernels vs plain
 
 
 def check(ok: bool, what: str) -> None:
@@ -388,16 +465,21 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 # ---------------------------------------------------------------- kernels --
-def rms_compare(gen, shape, dtype) -> float:
+def rms_compare(gen, shape, dtype, grouped: bool = False) -> float:
+    """The kernel against the plain version on x of ``shape``, with w [D],
+    or with a gain per group w [G, D] (the last two dims of x)."""
     x = randn(gen, shape, dtype)
-    w = randn(gen, (shape[-1],), torch.float32, 0.1)
+    w = randn(gen, shape[-2:] if grouped else (shape[-1],), torch.float32, 0.1)
+    n = rms_kernel.rmsnorm.grouped_launches
     got = rms_kernel.rmsnorm(x, w)
     want = ref.rmsnorm_ref(x, w)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     tol = TOL["rmsnorm"][dtype]
     check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-          f"rmsnorm {shape} {dtype}: max abs err {err}")
+          f"rmsnorm {shape} w {tuple(w.shape)} {dtype}: max abs err {err}")
+    check(rms_kernel.rmsnorm.grouped_launches == n + grouped,
+          f"rmsnorm {shape}: grouped launch count")
     return err
 
 
@@ -433,15 +515,17 @@ def sgd_compare(gen, n, nesterov, offsets=None) -> float:
     return err
 
 
-def backward_compare(gen, call, case, dtype) -> float:
+def backward_compare(gen, call, case, dtype, grouped: bool = False) -> float:
     """The gradient of ops.rmsnorm / ops.swa_attention on CUDA tensors that
     require grad (the autograd Function: kernel forward, explicit backward
     formula) against torch.autograd of the plain version, for a random
-    cotangent; ``case`` is rmsnorm's shape or swa_attention's (bh, s, d,
+    cotangent; ``case`` is rmsnorm's shape (``grouped``: with a gain per
+    group, w [G, D] over its last two dims) or swa_attention's (bh, s, d,
     window, causal)."""
     if call == "rmsnorm":
         args = [randn(gen, case, dtype).requires_grad_(),
-                randn(gen, (case[-1],), torch.float32, 0.1).requires_grad_()]
+                randn(gen, case[-2:] if grouped else (case[-1],), torch.float32,
+                      0.1).requires_grad_()]
         out = ops.rmsnorm(*args)
         plain = ref.rmsnorm_ref(*args)
         fn_name = "_RMSNormBackward"
@@ -505,6 +589,33 @@ def rms_timing(gen, rows, d, dtype) -> dict:
     }
 
 
+def rms_grouped_timing(gen, shape, dtype) -> dict:
+    """The [G, D] route at x ``shape`` [..., G, D]. Its library yardstick
+    is two calls, F.rms_norm over the last dim then the product with
+    1 + w: F.rms_norm with a [G, D] weight would normalise over G x D, a
+    different function."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    d, groups = shape[-1], shape[-2]
+    rows = math.prod(shape[:-1])
+    nbytes = 2 * rows * d * elt + 4 * groups * d
+
+    def make():
+        x, w = randn(gen, shape, dtype), randn(gen, shape[-2:], torch.float32, 0.1)
+        return x, w, (1 + w).to(dtype)
+
+    sets = copies(make, nbytes)
+    return {
+        "shape": list(shape), "weight": list(shape[-2:]),
+        "dtype": str(dtype).removeprefix("torch."),
+        "library_call": f"F.rms_norm(x, ({d},)) * (1 + w): two calls",
+        **timings(kernel=lambda x, w, g: rms_kernel.rmsnorm(x, w),
+                  plain=lambda x, w, g: ref.rmsnorm_ref(x, w),
+                  library=lambda x, w, g: F.rms_norm(x, (d,), None, 1e-6) * g,
+                  sets=sets),
+        **bound(nbytes, 5 * rows * d, dtype),  # square, sum, scale, gain, cast
+    }
+
+
 def swa_timing(gen, bh, s, d, dtype, heads: int) -> dict:
     elt = torch.tensor([], dtype=dtype).element_size()
     nbytes = 4 * bh * s * d * elt
@@ -563,6 +674,16 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
                       rms_compare(gen, (b * s, c.d_model), bf16))
         swa_err = max(swa_err, swa_compare(gen, b * c.n_heads, s, c.d_head, None,
                                            True, bf16))
+    # the gated norm's [G, D] route (a gain per head) at mamba2-780m's and
+    # jamba's prefill and decode shapes of y [B, S, H, P]
+    gnorm_shapes = {}
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        c = get_config(arch)
+        gnorm_shapes[arch] = [(b, s, c.n_ssm_heads, c.ssm_headdim),
+                              (SERVE["batch"], 1, c.n_ssm_heads, c.ssm_headdim)]
+        for shape in gnorm_shapes[arch]:
+            rms_compare(gen, shape, f32, grouped=True)
+            rms_err = max(rms_err, rms_compare(gen, shape, bf16, grouped=True))
     swa_compare(gen, b * cfg.n_heads, s, cfg.d_head, None, True, f32)
     for dtype in (f32, bf16):
         for shape in RMS_SWEEP:
@@ -580,26 +701,36 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
     # the Functions' backward at the LM train step's shapes (8 x 128 rows;
     # 8 x 16 heads of 128 tokens) and at one windowed sweep case
     rows, bh = LM["batch"] * LM["seq"], LM["batch"] * cfg.n_heads
+    ssm = get_config(SSM_ARCH)
+    gnorm_train = (SSM_TRAIN["batch"], SSM_TRAIN["seq"], ssm.n_ssm_heads, ssm.ssm_headdim)
     backward = {
         "rmsnorm": {str(dt).removeprefix("torch."): max(
             backward_compare(gen, "rmsnorm", shape, dt)
             for shape in ((rows, cfg.d_model), RMS_SWEEP[2])) for dt in (f32, bf16)},
+        # the gated norm's [48, 64] weight at the SSM train step's shape
+        "rmsnorm_grouped": {str(dt).removeprefix("torch."): backward_compare(
+            gen, "rmsnorm", gnorm_train, dt, grouped=True) for dt in (f32, bf16)},
         "swa_attention": {str(dt).removeprefix("torch."): max(
             backward_compare(gen, "swa_attention", case, dt)
             for case in ((bh, LM["seq"], cfg.d_head, None, True), SWA_SWEEP[2]))
             for dt in (f32, bf16)}}
     torch.cuda.synchronize()
     print(f"kernel phase: the three kernels agree with their plain versions at "
-          f"{len(RMS_SWEEP) * 2 + 6} rmsnorm, {len(SWA_SWEEP) * 2 + 4} "
-          f"swa_attention and {2 + 2 * len(SGD_SWEEP) + 3} fused_sgd_update "
-          f"cases; the rmsnorm and swa_attention Functions' gradients agree "
-          f"with autograd of the plain versions at 4 cases each "
+          f"{len(RMS_SWEEP) * 2 + 6 + 8} rmsnorm (8 with a [G, D] weight), "
+          f"{len(SWA_SWEEP) * 2 + 4} swa_attention and "
+          f"{2 + 2 * len(SGD_SWEEP) + 3} fused_sgd_update cases; the rmsnorm "
+          f"and swa_attention Functions' gradients agree with autograd of the "
+          f"plain versions at 6 and 4 cases "
           f"(max abs err {json.dumps(backward)})", flush=True)
     return {
         "rmsnorm": {"max_abs_err": rms_err,
                     "backward_max_abs_err": backward["rmsnorm"],
+                    "backward_grouped_max_abs_err": backward["rmsnorm_grouped"],
                     "prefill": rms_timing(gen, b * s, cfg.d_model, bf16),
-                    "decode": rms_timing(gen, SERVE["batch"], cfg.d_model, bf16)},
+                    "decode": rms_timing(gen, SERVE["batch"], cfg.d_model, bf16),
+                    "gnorm": {arch: {"prefill": rms_grouped_timing(gen, shapes[0], bf16),
+                                     "decode": rms_grouped_timing(gen, shapes[1], bf16)}
+                              for arch, shapes in gnorm_shapes.items()}},
         "swa_attention": {"max_abs_err": swa_err,
                           "backward_max_abs_err": backward["swa_attention"],
                           "prefill": swa_timing(gen, b * cfg.n_heads, s,
@@ -612,7 +743,10 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
 
 
 # ------------------------------------------------------------- main path --
-def serve_phase(cfg, params, label: str = "serve") -> dict:
+def serve_phase(cfg, params, label: str = "serve", per_step: int | None = None) -> dict:
+    """SERVE through launch.serve with the launch counts read around it;
+    ``per_step``: the rmsnorm launches a decode step must make (the
+    decoder-only transformers' 2 x layers + 1 when None)."""
     # warm-up at a tiny length (cuBLAS handles, allocator), not counted
     serve(cfg, batch=SERVE["batch"], prompt_len=4, new_tokens=2,
           params=params, device=DEVICE, log=False)
@@ -622,7 +756,8 @@ def serve_phase(cfg, params, label: str = "serve") -> dict:
                                   return_logits=True, **SERVE)
     counts = ops.launch_counts()
     steps = SERVE["prompt_len"] + SERVE["new_tokens"] - 1
-    per_step = 2 * cfg.n_layers + 1
+    if per_step is None:
+        per_step = 2 * cfg.n_layers + 1
     out = {"batch": SERVE["batch"], "prompt_len": SERVE["prompt_len"],
            "new_tokens": SERVE["new_tokens"], "decode_steps": steps,
            "seconds": seconds,
@@ -646,23 +781,27 @@ def serve_phase(cfg, params, label: str = "serve") -> dict:
 
 
 def decode_vs_prefill(decode, model, params, tokens, logits, n: int,
-                      fault: str | None = None) -> dict:
+                      fault: str | None = None, cache_dtype=torch.bfloat16) -> dict:
     """Step the decoder over the first n prompt tokens and compare each
     step's logits with the prefill's at that position.
 
     fault injects a cache fault from outside the model, as a control that
     the gate must catch: "pos_lag" passes pos t-1 at step t (each token
     overwrites the previous token's slot), "no_cache" zeroes the cache
-    before every step (decode sees no history).
+    before every step (decode sees no history), "ssm_state_zeroed" zeroes
+    every SSM state before every step and keeps the conv windows and KV
+    caches (the recurrence loses its history beyond the conv's last
+    K - 1 inputs).
     """
     b = tokens.shape[0]
     cache = pspec.init_params(None, model.cache_specs(
-        InputShape("d", tokens.shape[1], b, "decode")), DEVICE)
+        InputShape("d", tokens.shape[1], b, "decode"), cache_dtype), DEVICE)
     argmax, diff, finite = [], [], []
     for t in range(n):
         pos = max(t - 1, 0) if fault == "pos_lag" else t
-        if fault == "no_cache":
-            for c in cache.values():
+        for path, c in pspec.flatten(cache).items():
+            if fault == "no_cache" or (fault == "ssm_state_zeroed"
+                                       and path.endswith("ssm")):
                 c.zero_()
         step, cache = decode(params, cache, {
             "tokens": tokens[:, t:t + 1],
@@ -703,11 +842,13 @@ def prefill_vs_plain(model, params, batch, window: int | None = None) -> dict:
     logits = prefill(params, batch)
     seconds = sync_time() - t0
     counts = ops.launch_counts()
+    grouped = rms_kernel.rmsnorm.grouped_launches
     with plain_versions():
         plain = prefill(params, batch)
     b, s = batch["tokens"].shape
     return {"logits": logits, "plain": plain, "seconds": seconds,
             "tokens_per_s": b * s / seconds, "launches": counts,
+            "rmsnorm_grouped_launches": grouped,
             "rel_err_vs_plain": rel_err(logits, plain),
             "argmax_agree_vs_plain": float((logits.argmax(-1) == plain.argmax(-1))
                                            .float().mean())}
@@ -857,6 +998,8 @@ def op_group(cfg, name: str, shapes) -> str:
         w = list(shapes[1]) if len(shapes) > 1 and shapes[1] else []
         if cfg.vocab_size in w:
             return "lm_logits"
+        if cfg.family == "ssm":  # in/out projections touch d_model; the SSD's do not
+            return "mixer_projections" if cfg.d_model in w else "ssd_products"
         ffn = w[-2:] in ([cfg.d_model, cfg.d_ff], [cfg.d_ff, cfg.d_model])
         if ffn and cfg.is_moe and len(w) >= 3 and w[-3] == cfg.n_experts:
             return "expert_einsums"
@@ -1043,6 +1186,265 @@ def vlm_phase(smi: str) -> dict:
     check(not contract(control), f"VLM with mrope=False passed the contract: {control}")
     out["launches"] = {k: out["serve"]["launches"][k] + r["launches"][k]
                        for k in r["launches"]}
+    return out
+
+
+# ------------------------------------------------------ ssm and hybrid --
+def norm_launches(model) -> tuple[int, int]:
+    """rmsnorm launches of one forward or decode step of an SSM or hybrid
+    model, and those of them with a gain per head (the gated norms)."""
+    cfg = model.cfg
+    if cfg.family == "ssm":
+        return 2 * cfg.n_layers + 1, cfg.n_layers
+    n_mamba = model.n_blocks * (model.block_size - 1)
+    return 3 * n_mamba + 2 * model.n_blocks + 1, n_mamba
+
+
+@contextlib.contextmanager
+def f32_activations():
+    """The model's activations in f32: embed_tokens keeps the table's f32
+    rows (as tests/test_torch_mamba2.py patches both packages)."""
+    inner = mlayers.embed_tokens
+
+    def embed_f32(embedding, tokens, scale=None):
+        x = embedding[tokens.long()].float()
+        return x * scale if scale is not None else x
+
+    mlayers.embed_tokens = embed_f32
+    try:
+        yield
+    finally:
+        mlayers.embed_tokens = inner
+
+
+def train_steps(step, state, data, sched, steps: range, batch: int) -> dict:
+    """Train steps of ``batch`` sequences through a make_train_step step,
+    with the launch counts read around them: losses, seconds a step, the
+    median of the steps after the first, peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, seconds = [], []
+    for i in steps:
+        t0 = sync_time()
+        state, loss = step(state, data.batch(i, batch), sched(i))
+        losses.append(float(loss))
+        seconds.append(sync_time() - t0)
+    tokens = batch * data.seq
+    steady = sorted(seconds[1:])
+    step_ms = 1e3 * steady[len(steady) // 2]
+    return {"steps": len(steps), "losses": losses, "step_seconds": seconds,
+            "step_ms_median": step_ms, "tokens_per_s": tokens / (step_ms / 1e3),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {**ops.launch_counts(),
+                         "rmsnorm_grouped": rms_kernel.rmsnorm.grouped_launches}}
+
+
+def ssm_train(cfg, smi: str) -> dict:
+    """mamba2-780m trained at full width: f32 masters in one flat buffer,
+    AdamW. The step check at the initial weights, then SSM_TRAIN["steps"]
+    steps with f32 activations and SSM_BF16_STEPS more in bf16."""
+    model = build_model(cfg, torch.float32)
+    data = TokenStream(cfg.vocab_size, SSM_TRAIN["seq"], seed=0)
+    opt = adamw()
+    n = SSM_TRAIN["steps"]
+    sched = warmup_cosine(SSM_TRAIN["base_lr"], warmup=SSM_TRAIN["warmup"], total=n)
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    first = {k: torch.as_tensor(v, device=DEVICE) for k, v in
+             data.batch(0, SSM_TRAIN["batch"]).items()}
+    with f32_activations():
+        step_check = {"f32": lm_step_vs_plain(model, params, first, "gnorm/scale")}
+    step_check["bf16"] = lm_step_vs_plain(model, params, first, "gnorm/scale")
+    torch.cuda.empty_cache()
+
+    state = {"params": params, "opt": opt.init(params)}
+    step = make_train_step(model, opt, device=DEVICE)
+    held = {k: torch.as_tensor(v, device=DEVICE) for k, v in
+            data.batch(HELD_OUT["step"], SSM_TRAIN["batch"]).items()}
+    with f32_activations(), warnings.catch_warnings():
+        # deterministic algorithms, so that the gated trajectory is the
+        # same in every run on this card; warn_only as in lm_exact_resume
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with torch.no_grad():
+                held_before = float(model.loss(params, held))
+            f32 = train_steps(step, state, data, sched, range(n), SSM_TRAIN["batch"])
+            with torch.no_grad():
+                held_after = float(model.loss(state["params"], held))
+        finally:
+            torch.use_deterministic_algorithms(False)
+    f32["held_out_loss"] = {"step": HELD_OUT["step"], "before": held_before,
+                            "after": held_after}
+    bf16 = train_steps(step, state, data, sched, range(n, n + SSM_BF16_STEPS),
+                       SSM_TRAIN["batch"])
+    tokens = SSM_TRAIN["batch"] * SSM_TRAIN["seq"]
+    print(f"ssm_train: {cfg.name}, {tokens} tokens a step: f32 activations "
+          f"{f32['step_ms_median']:.1f} ms a step ({f32['tokens_per_s']:.0f} tokens/s, "
+          f"peak {f32['peak_memory_bytes']} bytes); bf16 {bf16['step_ms_median']:.1f} ms "
+          f"({bf16['tokens_per_s']:.0f} tokens/s, peak {bf16['peak_memory_bytes']} bytes) "
+          f"[{smi}]", flush=True)
+    return {"n_params": int(params.flat.numel()), **SSM_TRAIN,
+            "step_vs_plain": step_check, "f32_activations": f32, "bf16": bf16}
+
+
+def ssm_prefill_and_decode(model, params, tokens, gated: tuple[str, ...],
+                           decode_model=None) -> dict:
+    """The prefill through the kernels against the plain versions and
+    decode against prefill over CONTROL_POSITIONS positions: in bf16 (the
+    path a user serves) and with f32 activations and caches, launches
+    counted in both; the runs named in ``gated`` also decode under the
+    SSM_CONTROL_FAULTS. ``decode_model``: the model that decodes and gives
+    the prefill it is held to (the hybrid's at capacity factor 8), default
+    ``model``."""
+    dm = decode_model or model
+    decode = make_decode_step(dm, device=DEVICE)
+    out = {}
+    for name, f32 in (("bf16", False), ("f32", True)):
+        with f32_activations() if f32 else contextlib.nullcontext():
+            r = prefill_vs_plain(model, params, {"tokens": tokens})
+            logits = r.pop("logits")
+            del r["plain"]
+            r["finite"] = bool(torch.isfinite(logits).all())
+            if dm is not model:
+                logits = make_prefill(dm, device=DEVICE)(params, {"tokens": tokens})
+            cache_dtype = torch.float32 if f32 else torch.bfloat16
+            r["decode_vs_prefill"] = decode_vs_prefill(
+                decode, dm, params, tokens, logits, CONTROL_POSITIONS, cache_dtype=cache_dtype)
+            if name in gated:
+                r["decode_vs_prefill_faulty_controls"] = {
+                    f: decode_vs_prefill(decode, dm, params, tokens, logits,
+                                         CONTROL_POSITIONS, fault=f, cache_dtype=cache_dtype)
+                    for f in SSM_CONTROL_FAULTS}
+            del logits
+        out[name] = r
+    return out
+
+
+def check_ssm_prefill(label: str, runs: dict, gated: tuple[str, ...], per_pass: int,
+                      grouped: int, swa: int, vocab: int) -> None:
+    """The gates of ssm_prefill_and_decode's readings: launches of both
+    counted prefills; the contract, decode_gate and the failing controls
+    on the runs named in ``gated``."""
+    for name, r in runs.items():
+        check(r["launches"] == {"rmsnorm": per_pass, "swa_attention": swa,
+                                "fused_sgd_update": 0}
+              and r["rmsnorm_grouped_launches"] == grouped,
+              f"{label} {name} prefill launches {r['launches']}, "
+              f"grouped {r['rmsnorm_grouped_launches']}")
+        d = r["decode_vs_prefill"]
+        check(r["finite"] and d["finite"] and d["last_shape"][1:] == [1, vocab],
+              f"{label} {name} logits finite, decode {d['last_shape']}")
+    for name in gated:
+        r = runs[name]
+        check(contract(r), f"{label} {name} kernels vs plain prefill: rel err "
+              f"{r['rel_err_vs_plain']}, argmax {r['argmax_agree_vs_plain']}")
+        check(decode_gate(r["decode_vs_prefill"]),
+              f"{label} {name} decode vs prefill: {r['decode_vs_prefill']}")
+        for fault, c in r["decode_vs_prefill_faulty_controls"].items():
+            check(c["argmax_agree"] < DECODE_AGREE_MIN and c["rel_err_all"] >= 0.08,
+                  f"{label} {name} decode vs prefill gate passed the faulty control "
+                  f"{fault}: {c}")
+
+
+def ssm_phase(smi: str) -> dict:
+    cfg = get_config(SSM_ARCH)
+    model, params, out = init_full(cfg, SSM_ARCH)
+    check(out["n_params"] == SSM_PARAMS == cfg.param_count(),
+          f"{SSM_ARCH} at full width: {out['n_params']} parameters")
+    per_pass, grouped = norm_launches(model)
+    out["serve"] = serve_phase(cfg, params, "ssm_serve", per_step=per_pass)
+
+    b, s = PREFILL_SHAPE
+    tokens = torch.as_tensor(TokenStream(cfg.vocab_size, s, seed=5).batch(0, b)["tokens"],
+                             device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    out["prefill"] = ssm_prefill_and_decode(model, params, tokens, SSM_GATED)
+    out["prefill_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+
+    # where the time goes: one prefill and one decode step, in bf16
+    cache = pspec.init_params(None, model.cache_specs(
+        InputShape("p", SERVE["prompt_len"], SERVE["batch"], "decode")), DEVICE)
+    step_batch = {"tokens": torch.zeros((SERVE["batch"], 1), dtype=torch.int32,
+                                        device=DEVICE),
+                  "pos": torch.full((SERVE["batch"],), SERVE["prompt_len"] // 2,
+                                    dtype=torch.int32, device=DEVICE)}
+    prefill, decode = make_prefill(model, device=DEVICE), make_decode_step(model, device=DEVICE)
+    one_decode = lambda: decode(params, cache, step_batch)  # noqa: E731
+    one_prefill = lambda: prefill(params, {"tokens": tokens})  # noqa: E731
+    out["profile"] = {
+        "decode_step": {**device_profile(one_decode, 4),
+                        "groups_ms_per_call": op_groups(cfg, one_decode, 2)},
+        "prefill": {**device_profile(one_prefill, 2),
+                    "groups_ms_per_call": op_groups(cfg, one_prefill, 1)}}
+    del params, cache, model
+    torch.cuda.empty_cache()
+    out["train"] = ssm_train(cfg, smi)
+    print(f"ssm phase [{smi}]: " + json.dumps(out), flush=True)
+
+    check_ssm_prefill("SSM", out["prefill"], SSM_GATED, per_pass, grouped, 0, cfg.vocab_size)
+    sc = out["train"]["step_vs_plain"]
+    none = {"swa_attention": 0, "fused_sgd_update": 0}
+    for name, r in sc.items():
+        check(r["launches"] == {"rmsnorm": per_pass, **none, "rmsnorm_grouped": grouped},
+              f"SSM {name} step launches {r['launches']}")
+    check(lm_step_gate(sc["f32"]["kernels"]),
+          f"SSM step in f32, kernels vs plain: {sc['f32']['kernels']}, limits {LM_STEP_LIMITS}")
+    for control in LM_CONTROLS:
+        check(not lm_step_gate(sc["f32"][control]),
+              f"SSM step gate passed the control {control}: {sc['f32'][control]}")
+    check(sc["bf16"]["kernels"]["loss_rel_err"] < SSM_BF16_LOSS_LIMIT,
+          f"SSM step in bf16, kernels vs plain: loss {sc['bf16']['kernels']}")
+    for name in ("f32_activations", "bf16"):
+        tr = out["train"][name]
+        n = tr["steps"]
+        check(tr["launches"] == {"rmsnorm": per_pass * n, **none,
+                                 "rmsnorm_grouped": grouped * n},
+              f"SSM {name} train launches {tr['launches']}: {per_pass} ({grouped} "
+              f"grouped) a step")
+        check(all(math.isfinite(l) for l in tr["losses"]),
+              f"SSM {name} losses finite: {tr['losses']}")
+    losses = out["train"]["f32_activations"]["losses"]
+    check(sum(losses[-5:]) / 5 < losses[0],
+          f"SSM loss falls: mean of the last 5 {losses[-5:]} vs the first {losses[0]}")
+    held = out["train"]["f32_activations"]["held_out_loss"]
+    check(held["after"] < held["before"], f"SSM held-out loss falls: {held}")
+    counted = [out["serve"], out["prefill"]["bf16"], out["prefill"]["f32"],
+               out["train"]["f32_activations"], out["train"]["bf16"]]
+    out["launches"] = {k: sum(c["launches"][k] for c in counted)
+                       for k in ("rmsnorm", "swa_attention", "fused_sgd_update")}
+    return out
+
+
+def hybrid_phase(smi: str) -> dict:
+    cfg = dataclasses.replace(get_config(HYBRID_ARCH), n_layers=HYBRID_LAYERS)
+    model, params, out = init_full(cfg, f"{HYBRID_ARCH}, one block of {HYBRID_LAYERS} layers")
+    check(out["n_params"] == HYBRID_PARAMS == cfg.param_count(),
+          f"{HYBRID_ARCH} at full width, {HYBRID_LAYERS} layers: {out['n_params']} parameters")
+    per_pass, grouped = norm_launches(model)
+    b, s = PREFILL_SHAPE
+    tokens = torch.as_tensor(TokenStream(cfg.vocab_size, s, seed=5).batch(0, b)["tokens"],
+                             device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    # prefill at the config's capacity factor; decode against the prefill
+    # at the reference's capacity factor for that check
+    model8 = build_model(dataclasses.replace(cfg, capacity_factor=MOE_DECODE_CF))
+    out["prefill"] = ssm_prefill_and_decode(model, params, tokens, HYBRID_GATED,
+                                            decode_model=model8)
+    out["prefill"]["capacity_factor"] = cfg.capacity_factor
+    out["prefill"]["decode_capacity_factor"] = MOE_DECODE_CF
+    out["prefill_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["serve"] = serve_phase(cfg, params, "hybrid_serve", per_step=per_pass)
+    print(f"hybrid phase [{smi}]: " + json.dumps(out), flush=True)
+
+    runs = {k: out["prefill"][k] for k in ("bf16", "f32")}
+    check_ssm_prefill("hybrid", runs, HYBRID_GATED, per_pass, grouped, model.n_blocks,
+                      cfg.vocab_size)
+    peak = max(out["init_peak_memory_bytes"], out["prefill_peak_memory_bytes"],
+               out["serve"]["peak_memory_bytes"])
+    check(peak < 80e9, f"hybrid peak memory {peak}")
+    counted = [out["serve"], runs["bf16"], runs["f32"]]
+    out["launches"] = {k: sum(c["launches"][k] for c in counted)
+                       for k in ("rmsnorm", "swa_attention", "fused_sgd_update")}
     return out
 
 
@@ -1327,10 +1729,11 @@ def lm_step_gate(r: dict) -> bool:
     return all(r[key] < limit for key, limit in LM_STEP_LIMITS.items())
 
 
-def lm_step_vs_plain(model, params, batch: dict) -> dict:
+def lm_step_vs_plain(model, params, batch: dict, leaf: str = "mlp/wo") -> dict:
     """One step's loss and flat gradient through the kernels against the
     same step through the plain versions called directly, and the two
-    controls. Holds three full-size buffers: parameters and two flat
+    controls: labels shifted, and the last layer's ``layers/{leaf}``
+    gradient zeroed. Holds three full-size buffers: parameters and two flat
     gradients."""
     shapes = params.shapes()
     with plain_versions():
@@ -1338,15 +1741,19 @@ def lm_step_vs_plain(model, params, batch: dict) -> dict:
     want_loss = float(want_loss)
     ops.reset_launch_counts()
     loss, grads = value_and_flat_grad(model, params, batch)
-    counts = ops.launch_counts()
+    counts = {**ops.launch_counts(), "rmsnorm_grouped": rms_kernel.rmsnorm.grouped_launches}
 
     def errors(l) -> dict:
         return {"loss": float(l), "loss_rel_err": abs(float(l) - want_loss) / abs(want_loss),
                 **lm_grad_errors(grads, want, shapes)}
 
-    out = {"plain_loss": want_loss, "launches": counts, "kernels": errors(loss)}
-    pspec.views(grads, shapes)["layers"]["mlp"]["wo"][-1].zero_()
-    out["one_layer_wo_zeroed"] = errors(loss)
+    out = {"plain_loss": want_loss, "launches": counts, "kernels": errors(loss),
+           "zeroed_leaf": f"layers/{leaf}"}
+    node = pspec.views(grads, shapes)["layers"]
+    for k in leaf.split("/"):
+        node = node[k]
+    node[-1].zero_()
+    out["one_layer_zeroed"] = errors(loss)
     shifted = dict(batch, labels=torch.roll(batch["labels"], 1, dims=1))
     loss, grads = value_and_flat_grad(model, params, shifted, grads)
     out["labels_shifted"] = errors(loss)
@@ -1439,19 +1846,9 @@ def lm_train_phase(smi: str) -> dict:
 
     state = {"params": params, "opt": opt.init(params)}
     step = make_train_step(model, opt, device=DEVICE)
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    losses, seconds = [], []
-    for i in range(LM["steps"]):
-        t0 = sync_time()
-        state, loss = step(state, data.batch(i, LM["batch"]), sched(i))
-        losses.append(float(loss))
-        seconds.append(sync_time() - t0)
-    counts = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    tokens = LM["batch"] * LM["seq"]
-    steady = sorted(seconds[1:])
-    step_ms = 1e3 * steady[len(steady) // 2]
+    run = train_steps(step, state, data, sched, range(LM["steps"]), LM["batch"])
+    losses, counts, peak = run["losses"], run["launches"], run["peak_memory_bytes"]
+    tokens, step_ms = LM["batch"] * LM["seq"], run["step_ms_median"]
     more = iter(range(LM["steps"], 1000))
     profile_ = device_profile(
         lambda: step(state, data.batch(next(more), LM["batch"]), sched(LM["steps"] - 1)),
@@ -1471,10 +1868,7 @@ def lm_train_phase(smi: str) -> dict:
 
     out = {"config": cfg.name, "n_params": cfg.param_count(), "batch": LM["batch"],
            "seq": LM["seq"], "steps": LM["steps"], "init_seconds": init_seconds,
-           "step_vs_plain": step_check, "losses": losses,
-           "step_seconds": seconds, "step_ms_median": step_ms,
-           "tokens_per_s": tokens / (step_ms / 1e3), "peak_memory_bytes": peak,
-           "launches": counts, "profile": profile_,
+           "step_vs_plain": step_check, **run, "profile": profile_,
            "lm_logits_fwd_bwd_ms": logits_ms,
            "lm_logits_share_of_device_busy": logits_ms / busy if busy else None,
            "adamw_update_ms": adamw_ms,
@@ -1493,8 +1887,9 @@ def lm_train_phase(smi: str) -> dict:
 
     per_step = {"rmsnorm": 2 * cfg.n_layers + 1, "swa_attention": cfg.n_layers,
                 "fused_sgd_update": 0}
-    check(step_check["launches"] == per_step, f"LM step launches {step_check['launches']}")
-    check(counts == {k: n * LM["steps"] for k, n in per_step.items()},
+    check(step_check["launches"] == {**per_step, "rmsnorm_grouped": 0},
+          f"LM step launches {step_check['launches']}")
+    check(counts == {**{k: n * LM["steps"] for k, n in per_step.items()}, "rmsnorm_grouped": 0},
           f"LM train launches {counts}: {per_step} a step")
     check(lm_step_gate(step_check["kernels"]),
           f"LM step, kernels vs plain: {step_check['kernels']}, limits {LM_STEP_LIMITS}")
@@ -1681,6 +2076,12 @@ def main() -> int:
     vlm = vlm_phase(smi)
     torch.cuda.empty_cache()
     print(f"vlm phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    ssm = ssm_phase(smi)
+    torch.cuda.empty_cache()
+    print(f"ssm phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    hybrid = hybrid_phase(smi)
+    torch.cuda.empty_cache()
+    print(f"hybrid phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     trained = train_phase()
     print(f"train phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     torch.cuda.empty_cache()  # the LM trainer needs most of the card
@@ -1702,6 +2103,7 @@ def main() -> int:
             "replaces": tpu[name], "tpu_counterpart": f"{tpu[name]} {name}",
             "launches": (served["launches"][name] + prefilled["launches"][name]
                          + moe["launches"][name] + vlm["launches"][name]
+                         + ssm["launches"][name] + hybrid["launches"][name]
                          + lm_trained["launches"][name]),
             "launches_per_decode_step": served["launches"][name] / served["decode_steps"],
             "launches_per_prefill": prefilled["launches"][name],
@@ -1713,6 +2115,21 @@ def main() -> int:
                                              / vlm["serve"]["decode_steps"]),
             "launches_lm_train": lm_trained["launches"][name],
             "launches_per_lm_train_step": lm_trained["launches"][name] / lm_trained["steps"],
+            "launches_per_hybrid_prefill": hybrid["prefill"]["bf16"]["launches"][name],
+            **({"launches_per_ssm_decode_step": (ssm["serve"]["launches"][name]
+                                                 / ssm["serve"]["decode_steps"]),
+                "launches_per_ssm_prefill": ssm["prefill"]["bf16"]["launches"][name],
+                "launches_ssm_train": {t: ssm["train"][t]["launches"][name]
+                                       for t in ("f32_activations", "bf16")},
+                "launches_grouped": {
+                    "per_ssm_prefill": ssm["prefill"]["bf16"]["rmsnorm_grouped_launches"],
+                    "per_hybrid_prefill": hybrid["prefill"]["bf16"]["rmsnorm_grouped_launches"],
+                    "ssm_train": {t: ssm["train"][t]["launches"]["rmsnorm_grouped"]
+                                  for t in ("f32_activations", "bf16")}},
+                "launches_per_hybrid_decode_step": (hybrid["serve"]["launches"][name]
+                                                    / hybrid["serve"]["decode_steps"]),
+                "backward_grouped_max_abs_err": k["backward_grouped_max_abs_err"],
+                "at_gnorm": k["gnorm"]} if name == "rmsnorm" else {}),
             "backward_max_abs_err": k["backward_max_abs_err"],
             "max_abs_err": k["max_abs_err"],
             **k["prefill"], "kernel_ms": k["prefill"]["ms"],  # the issue's name
@@ -1725,7 +2142,7 @@ def main() -> int:
                            for dt in swa_kernel.KERNELS}}
                if name == "swa_attention" else {})})
     k = kernels["fused_sgd_update"]
-    train_steps = sum(n for _, n in TRAIN_SEGMENTS)
+    sgd_steps = sum(n for _, n in TRAIN_SEGMENTS)
     entries.append({
         "name": "fused_sgd_update", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_sgd_update.cu",
@@ -1733,7 +2150,7 @@ def main() -> int:
         "tpu_counterpart": f"{tpu['fused_sgd_update']} fused_sgd_update",
         "launches": trained["launches"]["fused_sgd_update"] + data_parallel["launches"],
         "launches_train": trained["launches"]["fused_sgd_update"],
-        "launches_per_train_step": trained["launches"]["fused_sgd_update"] / train_steps,
+        "launches_per_train_step": trained["launches"]["fused_sgd_update"] / sgd_steps,
         "launches_dp": data_parallel["launches"],  # all ranks, all algorithms
         "launches_per_dp_rank_step": data_parallel["launches"] / sum(
             spec.world * spec.steps * len(spec.algorithms) for spec in (DP, DP_W3)),

@@ -6,9 +6,11 @@ The reference's parameter tree, flattened to ``/``-joined paths as
 tensors with the same paths. The port never imports the store: callers
 flatten the tree themselves.
 
-The port keeps the reference's layouts, so the map is the identity. Where
-every parameter is f32 (the ResNet; a transformer stored in f32, as it
-trains), each array is copied into its view of one flat parameter buffer.
+The port keeps the reference's layouts, so the map is the identity, for
+the transformers' ``layers/...``, Mamba-2's ``layers/...`` and Jamba's
+``blocks/pos{p}/...`` alike. Where every parameter is f32 (the ResNet; an
+LM stored in f32, as it trains), each array is copied into its view of
+one flat parameter buffer.
 """
 from __future__ import annotations
 
@@ -25,16 +27,17 @@ def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig | ResNetConf
                       device, dtype: torch.dtype = torch.bfloat16) -> dict:
     """Port parameters of ``cfg`` from the reference's flattened tree.
 
-    The reference stores everything in f32 and casts the attention and
-    MLP matmul weights and the QKV biases to the activation dtype at use
-    (``p["wq"].astype(dt)``). For a transformer those are stored in
-    ``dtype`` (its ``param_dtype``: bf16 to serve, so that no step casts
-    them; float32 to train, or when the model runs in f32). Norm gains stay
-    f32 (``1 + w`` in f32), and ``embed``/``unembed`` stay f32
-    (``lm_logits`` is f32; the embedding is gathered, then cast).
-    Where every parameter is f32 (a ResNet, whatever ``dtype``; a
-    transformer with ``dtype`` float32) they come back as one FlatTree
-    (``models.spec``).
+    The reference stores everything in f32 and casts the attention, MLP
+    and MoE matmul weights, the QKV biases, and Mamba-2's projections,
+    conv taps and D skip to the activation dtype at use
+    (``p["wq"].astype(dt)``). For an LM those are stored in ``dtype`` (its
+    ``param_dtype``: bf16 to serve, so that no step casts them; float32 to
+    train, or when the model runs in f32). Norm gains, Mamba-2's ``A_log``
+    and ``dt_bias`` stay f32 (the reference reads them in f32), and
+    ``embed``/``unembed`` stay f32 (``lm_logits`` is f32; the embedding is
+    gathered, then cast). Where every parameter is f32 (a ResNet, whatever
+    ``dtype``; an LM with ``dtype`` float32) they come back as one
+    FlatTree (``models.spec``).
 
     Raises KeyError if a path is missing or extra, ValueError on a shape
     that is not the config's.

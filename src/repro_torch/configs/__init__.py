@@ -1,8 +1,9 @@
 """Config registry of the port: ``--arch <id>`` resolution.
 
-A copy of ``repro.configs`` restricted to the decoder-only configs that the
-port builds (dense, MoE and the VLM backbone); the other families join as
-their models are ported (see ROADMAP.md).
+A copy of ``repro.configs`` restricted to the configs that the port
+builds: the decoder-only transformers (dense, MoE and the VLM backbone),
+the SSM (mamba2-780m) and the hybrid (jamba-v0.1-52b). whisper-base joins
+when the audio family is ported (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ _ARCH_MODULES = {
     "qwen2.5-3b": "repro_torch.configs.qwen25_3b",
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
     "h2o-danube-1.8b": "repro_torch.configs.h2o_danube_1p8b",
+    "mamba2-780m": "repro_torch.configs.mamba2_780m",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v01_52b",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "gemma-2b": "repro_torch.configs.gemma_2b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",

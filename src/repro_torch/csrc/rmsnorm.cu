@@ -3,6 +3,9 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/rmsnorm.py:25 `rmsnorm`
 // (body `_kernel` at :17). Statistics in f32, output in x's dtype (bf16 or
 // f32), gain 1 + w with w in f32, as in repro.models.layers.rmsnorm.
+// w holds G rows of d gains and row r of x takes gain row r mod G: G = 1
+// for a [D] weight, G = H for Mamba-2's gated norm of y [B, S, H, P] with
+// a weight per head [H, P] (the reference broadcasts it the same way).
 //
 // Bound on the H100: memory. Each element is read, squared, read again and
 // written: ~4 flops against 4 bytes of traffic (bf16), far below the ~295
@@ -14,7 +17,9 @@
 // Threads read 16-byte vectors (8 bf16 or 4 f32), square-sum in f32, reduce
 // by warp shuffles and one shared-memory step, then read the row again (an
 // L1/L2 hit: a row is a few KB) and write it once. A scalar variant covers
-// widths that are not a multiple of the vector or unaligned pointers.
+// widths that are not a multiple of the vector or unaligned pointers. At
+// d = 64 (the gated norm's head width) a row is 8 bf16 vectors, so 24 of
+// the block's 32 threads have nothing to do: simple, not yet tuned.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,9 +51,10 @@ __device__ __forceinline__ float block_sum(float v) {
 // VEC: rows are read and written as 16-byte vectors of N = 16 / sizeof(T).
 template <typename T, bool VEC>
 __global__ void rmsnorm_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                               T* __restrict__ y, int d, float eps) {
+                               T* __restrict__ y, int d, int groups, float eps) {
   constexpr int N = VEC ? 16 / sizeof(T) : 1;
   const T* xr = x + static_cast<int64_t>(blockIdx.x) * d;
+  const float* wr = w + static_cast<int64_t>(blockIdx.x % groups) * d;
   T* yr = y + static_cast<int64_t>(blockIdx.x) * d;
   const int n_chunks = d / N;
 
@@ -75,10 +81,10 @@ __global__ void rmsnorm_kernel(const T* __restrict__ x, const float* __restrict_
       *reinterpret_cast<uint4*>(e) = reinterpret_cast<const uint4*>(xr)[c];
 #pragma unroll
       for (int j = 0; j < N; j += 4)
-        *reinterpret_cast<float4*>(g + j) = reinterpret_cast<const float4*>(w)[(c * N + j) / 4];
+        *reinterpret_cast<float4*>(g + j) = reinterpret_cast<const float4*>(wr)[(c * N + j) / 4];
     } else {
       e[0] = xr[c];
-      g[0] = w[c];
+      g[0] = wr[c];
     }
     alignas(16) T o[N];
 #pragma unroll
@@ -92,9 +98,11 @@ __global__ void rmsnorm_kernel(const T* __restrict__ x, const float* __restrict_
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* w, void* y, long long rows, int d, float eps,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* x, const void* w, void* y, long long rows, int d, int groups,
+                   float eps, cudaStream_t stream) {
   constexpr int N = 16 / sizeof(T);
+  // Every row of w starts 16-byte aligned when w does: a row is d * 4
+  // bytes and d % N == 0 (N >= 4).
   const bool vec = d % N == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(w) % 16 == 0;
@@ -104,24 +112,27 @@ cudaError_t launch(const void* x, const void* w, void* y, long long rows, int d,
   const T* xt = static_cast<const T*>(x);
   const float* wt = static_cast<const float*>(w);
   T* yt = static_cast<T*>(y);
+  const unsigned blocks = static_cast<unsigned>(rows);
   if (vec) {
-    rmsnorm_kernel<T, true><<<static_cast<unsigned>(rows), threads, 0, stream>>>(xt, wt, yt, d, eps);
+    rmsnorm_kernel<T, true><<<blocks, threads, 0, stream>>>(xt, wt, yt, d, groups, eps);
   } else {
-    rmsnorm_kernel<T, false><<<static_cast<unsigned>(rows), threads, 0, stream>>>(xt, wt, yt, d, eps);
+    rmsnorm_kernel<T, false><<<blocks, threads, 0, stream>>>(xt, wt, yt, d, groups, eps);
   }
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// w: [groups, d] f32, row r of x takes w's row r % groups. dtype: 0 =
+// float32, 1 = bfloat16. Returns the cudaError_t of the launch.
 extern "C" int rmsnorm_launch(const void* x, const void* w, void* y, long long rows, int d,
-                              float eps, int dtype, void* stream) {
-  if (rows <= 0 || rows > 0x7fffffffLL || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                              int groups, float eps, int dtype, void* stream) {
+  if (rows <= 0 || rows > 0x7fffffffLL || d <= 0 || groups <= 0 || rows % groups != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(launch<float>(x, w, y, rows, d, eps, s));
-    case 1: return static_cast<int>(launch<__nv_bfloat16>(x, w, y, rows, d, eps, s));
+    case 0: return static_cast<int>(launch<float>(x, w, y, rows, d, groups, eps, s));
+    case 1: return static_cast<int>(launch<__nv_bfloat16>(x, w, y, rows, d, groups, eps, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -45,14 +45,16 @@ _SWA_BWD_BLOCK = 1 << 28
 def rmsnorm_backward(x, w, g, *, eps: float = 1e-6):
     """-> (dx, dw) of ``y = x * r * (1 + w)``, ``r = rsqrt(mean(x**2) + eps)``
     over the last dim, for the cotangent ``g`` of y. With ``a = g * (1 + w)``:
-    ``dx = r * a - x * r**3 * mean(a * x)`` and ``dw = sum_rows g * x * r``.
-    r is recomputed from x; f32 math, dx in x's dtype and dw in w's."""
+    ``dx = r * a - x * r**3 * mean(a * x)`` and ``dw = sum g * x * r`` over
+    every leading axis that w does not have (w is [D] or [G, D], a suffix
+    of x's shape). r is recomputed from x; f32 math, dx in x's dtype and
+    dw in w's."""
     ct = ref.math_dtype(x.dtype)
     xf, gf, wf = x.to(ct), g.to(ct), w.to(ct)
     r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     a = gf * (1.0 + wf)
     dx = r * a - xf * (r * r * r) * torch.mean(a * xf, dim=-1, keepdim=True)
-    dw = (gf * xf * r).reshape(-1, x.shape[-1]).sum(0)
+    dw = (gf * xf * r).reshape(-1, *w.shape).sum(0)
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
@@ -133,7 +135,8 @@ class _SWAAttention(torch.autograd.Function):
 
 
 def rmsnorm(x, w, *, eps: float = 1e-6):
-    """RMSNorm with gain 1 + w. x: [..., D]; w: [D] f32."""
+    """RMSNorm with gain 1 + w. x: [..., D]; w: f32, [D], or [G, D] with
+    x ending in [G, D] (a gain per head)."""
     if _wants_grad(x, w):
         return _RMSNorm.apply(x, w, eps)
     return _rmsnorm(x, w, eps)
@@ -175,3 +178,4 @@ def reset_launch_counts() -> None:
     _rms.rmsnorm.launches = 0
     _swa.swa_attention.launches = 0
     _fu.fused_sgd_update.launches = 0
+    _rms.rmsnorm.grouped_launches = 0

@@ -4,11 +4,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       --batch 4 --prompt-len 128 --new-tokens 32
 
-Any ported decoder-only ``--arch``: dense, MoE (qwen3-moe-30b-a3b, whose
-bf16 weights take 62.3 GB) or the VLM backbone (qwen2-vl-2b, served on
-text tokens: like the reference's loop, this one passes no patch
-embeddings). Runs on the GPU; ``--device cpu`` runs the plain versions on
-the CPU.
+Any ported LM ``--arch``: dense, MoE (qwen3-moe-30b-a3b, whose bf16
+weights take 62.3 GB), the VLM backbone (qwen2-vl-2b, served on text
+tokens: like the reference's loop, this one passes no patch embeddings),
+the SSM (mamba2-780m, whose decode carries conv windows and an f32 SSM
+state in place of a KV cache) or the hybrid (jamba-v0.1-52b: its 103 GB
+of bf16 weights need more than one 80 GB card at full depth; ``--smoke``
+runs it anywhere). Runs on the GPU; ``--device cpu`` runs the plain
+versions on the CPU.
 """
 from __future__ import annotations
 

@@ -1,10 +1,11 @@
 """End-to-end LM training launcher (torch twin of ``repro.launch.train``).
 
-Trains any ported dense ``--arch`` (full or ``--smoke`` reduced config) on
-the synthetic token pipeline with AdamW + warmup-cosine, checkpointing
-through the elastic store. The parameters are f32 masters in one flat
-buffer; the forward runs in bf16, through the ``rmsnorm`` and
-``swa_attention`` kernels on the GPU. ``--workers`` sets the data-parallel
+Trains any ported LM ``--arch`` (full or ``--smoke`` reduced config:
+dense, MoE, VLM backbone, mamba2-780m, jamba) on the synthetic token
+pipeline with AdamW + warmup-cosine, checkpointing through the elastic
+store. The parameters are f32 masters in one flat buffer; the forward
+runs in bf16, through the ``rmsnorm`` kernel (and ``swa_attention``
+where the model has attention) on the GPU. ``--workers`` sets the data-parallel
 worker count the scheduler allocated: per-worker batch m stays fixed,
 global batch = m * workers on one device, LR linearly rescaled (paper
 eq. 7).

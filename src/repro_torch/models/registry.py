@@ -1,8 +1,8 @@
 """Model factory: config -> model object (torch twin of ``repro.models.registry``).
 
-The decoder-only transformer family (dense, MoE and the VLM backbone) and
-the ResNet are ported; the ssm, hybrid and audio families come in later
-slices (see ROADMAP.md).
+The decoder-only transformer family (dense, MoE and the VLM backbone), the
+SSM (Mamba-2), the hybrid (Jamba) and the ResNet are ported; the audio
+family (whisper) comes in a later slice (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.resnet110 import ResNetConfig
+from repro_torch.models.hybrid import JambaModel
+from repro_torch.models.mamba2 import Mamba2Model
 from repro_torch.models.resnet import ResNetModel
 from repro_torch.models.transformer import TransformerModel
 
@@ -17,13 +19,17 @@ from repro_torch.models.transformer import TransformerModel
 def build_model(cfg: ModelConfig | ResNetConfig,
                 dtype: torch.dtype = torch.bfloat16):
     """``dtype``: the ResNet's activation dtype (its parameters are f32);
-    the transformer's ``param_dtype``, the dtype in which it stores its
-    matmul weights (bf16 to serve, f32 to train; its activations are bf16)."""
+    an LM's ``param_dtype``, the dtype in which it stores its matmul
+    weights (bf16 to serve, f32 to train; its activations are bf16)."""
     if isinstance(cfg, ResNetConfig):
         return ResNetModel(cfg, dtype)
-    if cfg.family in ("ssm", "hybrid", "audio"):
+    if cfg.family == "ssm":
+        return Mamba2Model(cfg, dtype)
+    if cfg.family == "hybrid":
+        return JambaModel(cfg, dtype)
+    if cfg.family == "audio":
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
+            f"{cfg.name}: the audio family (whisper) is not ported yet "
             "(see ROADMAP.md)")
     return TransformerModel(cfg, dtype)
 

@@ -38,6 +38,10 @@ SWA_CASES = [
 # of no tile (too slow for the reference's interpret mode on the CPU).
 SWA_CUDA_ONLY = [(4, 2048, 128, 512, True), (2, 200, 80, None, True)]
 RMS_CASES = [(4, 128, 512), (1, 7, 64), (300, 1024), (2, 2048)]
+# x [..., G, D] with a weight [G, D] (a gain per head: Mamba-2's gated norm
+# of y [B, S, H, P]); mamba2-780m's decode shape (48 heads of 64), a
+# smoke-size prefill shape, a width off the vector
+RMS_GROUPED_CASES = [(4, 1, 48, 64), (2, 9, 6, 16), (3, 5, 4, 100)]
 
 
 def _swa_inputs(bh, s, d, seed):
@@ -97,6 +101,40 @@ def test_rmsnorm_matches_model_layer():
         ops.rmsnorm(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
         np.asarray(layer_rmsnorm(jnp.asarray(x), jnp.asarray(w))),
         rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RMS_GROUPED_CASES)
+def test_rmsnorm_with_a_weight_per_group(shape, dtype):
+    """ops.rmsnorm with w [G, D] over x [..., G, D]: each row normalised
+    over D and scaled by its group's gain, as the reference's plain
+    versions broadcast it (repro.kernels.ref.rmsnorm_ref and
+    repro.models.layers.rmsnorm, which mamba2's gated norm calls)."""
+    from repro.models.layers import rmsnorm as layer_rmsnorm
+    rng = np.random.default_rng(sum(shape))
+    x = rng.standard_normal(shape, dtype=np.float32)
+    w = rng.standard_normal(shape[-2:], dtype=np.float32) * 0.1
+    (jx, tx), jw, tw = both(x, dtype), jnp.asarray(w), torch.from_numpy(w)
+    got = ops.rmsnorm(tx, tw)
+    assert got.dtype == tx.dtype and got.shape == tx.shape
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for want in (jref.rmsnorm_ref(jx, jw), layer_rmsnorm(jx, jw)):
+        np.testing.assert_allclose(as_f32(got), as_f32(want), rtol=tol, atol=tol)
+    # a different gain per group: group g alone equals the [D] call
+    g = shape[-2] - 1
+    np.testing.assert_array_equal(as_f32(got[..., g, :]),
+                                  as_f32(ops.rmsnorm(tx[..., g, :].contiguous(), tw[g])))
+
+
+@pytest.mark.parametrize("w_shape", [(65,), (3, 64), (4, 65), (1, 4, 64), (64, 4), ()])
+def test_rmsnorm_kernel_refuses_a_weight_that_is_no_suffix_of_x(w_shape):
+    """x [2, 5, 4, 64] takes w [64] or [4, 64]; any other shape is refused
+    before the device is looked at, and nothing launches."""
+    x, w = torch.zeros(2, 5, 4, 64), torch.zeros(w_shape)
+    before = ops.launch_counts()
+    with torch.no_grad(), pytest.raises(ValueError, match="do not match"):
+        rms_kernel.rmsnorm(x, w)
+    assert ops.launch_counts() == before
 
 
 def _sgd_inputs(n, seed):
@@ -329,6 +367,27 @@ def test_rmsnorm_kernel_matches_plain(cuda, shape, dtype):
                          * 0.1).to(cuda)
     got = rms_kernel.rmsnorm(x, w)
     torch.cuda.synchronize()
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(as_f32(got), as_f32(ref.rmsnorm_ref(x, w)),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RMS_GROUPED_CASES + [(2, 1024, 48, 64), (2, 64, 128, 64)])
+def test_rmsnorm_grouped_kernel_matches_plain(cuda, shape, dtype):
+    """The [G, D] route at the gated norm's shapes (mamba2-780m's prefill,
+    jamba's 128 heads of 64) against the plain version; one launch,
+    counted as grouped."""
+    rng = np.random.default_rng(sum(shape))
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(
+        cuda, DTYPES[dtype][1])
+    w = torch.from_numpy(rng.standard_normal(shape[-2:], dtype=np.float32) * 0.1).to(cuda)
+    n, grouped = rms_kernel.rmsnorm.launches, rms_kernel.rmsnorm.grouped_launches
+    got = rms_kernel.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    assert (rms_kernel.rmsnorm.launches, rms_kernel.rmsnorm.grouped_launches) == (n + 1,
+                                                                                 grouped + 1)
     tol = 1e-5 if dtype == "float32" else 2e-2
     np.testing.assert_allclose(as_f32(got), as_f32(ref.rmsnorm_ref(x, w)),
                                rtol=tol, atol=tol)

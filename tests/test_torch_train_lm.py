@@ -203,6 +203,45 @@ def test_rmsnorm_function_passes_gradcheck(shape):
     assert torch.autograd.gradcheck(lambda x, w: ops.rmsnorm(x, w), (x, w))
 
 
+def _rms_grouped_args(shape, dtype, seed=0):
+    """x, a gain per group w [G, D] (the last two dims of x) and a
+    cotangent."""
+    x, _, g = _rms_args(shape, dtype, seed)
+    w = np.random.default_rng(seed + 1).standard_normal(shape[-2:]) * 0.1
+    return x, torch.from_numpy(w).to(
+        torch.float64 if dtype == torch.float64 else torch.float32), g
+
+
+RMS_GROUPED_SHAPES = [(2, 3, 4, 8), (5, 3, 16)]
+
+
+@pytest.mark.parametrize("shape", RMS_GROUPED_SHAPES)
+def test_rmsnorm_function_with_a_weight_per_group_passes_gradcheck(shape):
+    x, w, _ = _rms_grouped_args(shape, torch.float64)
+    x.requires_grad_(), w.requires_grad_()
+    assert torch.autograd.gradcheck(lambda x, w: ops.rmsnorm(x, w), (x, w))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", RMS_GROUPED_SHAPES + [(2, 8, 48, 64)])
+def test_rmsnorm_backward_with_a_weight_per_group_matches_autograd_of_plain(shape, dtype):
+    """dw has the weight's shape [G, D]: summed over every leading axis of
+    x, one sum per group."""
+    x, w, g = _rms_grouped_args(shape, DTYPES[dtype][1], seed=sum(shape))
+    dx, dw = ops.rmsnorm_backward(x, w, g)
+    assert dx.shape == x.shape and dw.shape == w.shape and dw.dtype == torch.float32
+    x.requires_grad_(), w.requires_grad_()
+    out = ops.rmsnorm(x, w)
+    assert type(out.grad_fn).__name__ == "_RMSNormBackward"
+    got = torch.autograd.grad(out, (x, w), g)
+    want = torch.autograd.grad(ref.rmsnorm_ref(x, w), (x, w), g)
+    tol = FN_TOL["rmsnorm"][dtype]
+    for a, b, c in zip(got, want, (dx, dw)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a.float().numpy(), c.float().numpy())
+        np.testing.assert_allclose(a.float().numpy(), b.float().numpy(), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("bh,s,d,causal,window", SWA_CASES)
 def test_swa_attention_function_passes_gradcheck(bh, s, d, causal, window):
     q, k, v, _ = _swa_args(bh, s, d, torch.float64)
@@ -267,12 +306,23 @@ def _both_models(arch, seed=0):
                                                    torch.float32)
 
 
+# The bf16 gradient gate holds the transformer family. The ssm and hybrid
+# families' bf16 gradients are dominated by bf16 rounding at smoke size:
+# the reference's own bf16 gradient is 0.27 (mamba2) and 0.30 (jamba)
+# from its f32 gradient (flat relative L2; cpu_ssm_sensitivity.py), so a
+# port that rounds at other places cannot meet 0.05 against it. Their
+# loss and gradient are held in f32 (and their loss in bf16) in
+# test_torch_mamba2.py and test_torch_hybrid.py.
+TRANSFORMER_ARCHS = [a for a in ARCH_IDS
+                     if get_smoke_config(a).family not in ("ssm", "hybrid")]
+
+
 @pytest.fixture(scope="module")
 def reference_grads():
     """Per arch: the reference's loss and flat gradient, and the port's
     model, parameters and batch, computed once for the module."""
     out = {}
-    for arch in ARCH_IDS:
+    for arch in TRANSFORMER_ARCHS:
         cfg, jm, jparams, tm, params = _both_models(arch)
         batch = _tokens(cfg, seq=64)
         loss, grads = jax.value_and_grad(lambda p: jm.loss(p, _on_jax(batch)))(jparams)
@@ -290,7 +340,7 @@ def _passes(r) -> bool:
     return r["loss"] < LOSS_REL and r["flat"] < FLAT_REL_L2 and r["leaf"] < LEAF_REL_L2
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", TRANSFORMER_ARCHS)
 def test_loss_and_flat_grad_match_jax(arch, reference_grads):
     want_loss, want, tm, params, batch = reference_grads[arch]
     loss, grads = value_and_flat_grad(tm, params, _on_torch(batch))
@@ -299,7 +349,7 @@ def test_loss_and_flat_grad_match_jax(arch, reference_grads):
 
 
 @pytest.mark.parametrize("control", ["labels_shifted", "one_layer_wo_zeroed"])
-@pytest.mark.parametrize("arch", ARCH_IDS)
+@pytest.mark.parametrize("arch", TRANSFORMER_ARCHS)
 def test_loss_and_flat_grad_gate_fails_its_controls(arch, control, reference_grads):
     want_loss, want, tm, params, batch = reference_grads[arch]
     if control == "labels_shifted":
