@@ -10,7 +10,10 @@
    card, at the main path's shapes and at the shape sweeps of
    tests/test_kernels.py (swa_attention in both dtype routes: bf16 on the
    tensor cores, f32 on the CUDA cores; rmsnorm also with a gain per head,
-   w [G, D], at mamba2-780m's and jamba's gated-norm shapes), and times
+   w [G, D], at mamba2-780m's and jamba's gated-norm shapes, at every
+   [D] width of the main paths in both dtypes, on each side of each of
+   its route edges and on unaligned views, printing the route and design
+   the built library reports for each main-path width), and times
    kernel, plain version and the PyTorch library call that computes the
    same function (yardstick only; for the [G, D] route two calls,
    F.rms_norm then the product with 1 + w); and holds the gradients of
@@ -180,6 +183,14 @@ SWA_SWEEP = [(2, 256, 64, None, True), (2, 256, 64, 128, True),
              (2, 1000, 128, None, True), (2, 333, 80, 100, True),
              (1, 64, 256, None, True)]
 RMS_SWEEP = [(4, 128, 512), (1, 7, 64), (300, 1024), (2, 2048), (3, 100)]
+# rmsnorm's route edges (csrc/rmsnorm.cu), in rows of 16-byte vectors:
+# 32 | 33 (small | wide: bf16 d = 256 | 264, f32 128 | 132), 128 | 129 (a
+# row within a warp | across a block's warps: bf16 1024 | 1032, f32
+# 512 | 516) and 1024 | 1025 (wide | general: bf16 8192 | 8200, f32
+# 4096 | 4100); each width runs in both dtypes
+RMS_EDGES = (128, 132, 256, 264, 512, 516, 1024, 1032, 4096, 4100, 8192, 8200)
+# unaligned views: (d, element offset into a larger buffer)
+RMS_UNALIGNED = ((2048, 1), (64, 3), (1536, 2))
 SGD_SWEEP = (7, 65536, 100001)
 # The trainer: Table 2's 4 -> 8 restart at the paper's 128 images per GPU,
 # then a third segment at w = 8 long enough to learn. The reference's
@@ -465,10 +476,20 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 # ---------------------------------------------------------------- kernels --
-def rms_compare(gen, shape, dtype, grouped: bool = False) -> float:
+def rms_compare(gen, shape, dtype, grouped: bool = False, offset: int = 0) -> float:
     """The kernel against the plain version on x of ``shape``, with w [D],
-    or with a gain per group w [G, D] (the last two dims of x)."""
-    x = randn(gen, shape, dtype)
+    or with a gain per group w [G, D] (the last two dims of x). With an
+    ``offset``, x is a contiguous view at that element offset into a
+    larger buffer: not 16-byte aligned, so the general route, one element
+    a load."""
+    if offset:
+        x = randn(gen, (math.prod(shape) + offset,), dtype)[offset:].view(shape)
+        route = rms_kernel.design(shape[-1], dtype, aligned=False)
+        check(x.data_ptr() % 16 != 0 and route["route"] == "general"
+              and route["load_bytes"] == x.element_size(),
+              f"rmsnorm {shape} at offset {offset} {dtype}: design {route}")
+    else:
+        x = randn(gen, shape, dtype)
     w = randn(gen, shape[-2:] if grouped else (shape[-1],), torch.float32, 0.1)
     n = rms_kernel.rmsnorm.grouped_launches
     got = rms_kernel.rmsnorm(x, w)
@@ -477,7 +498,7 @@ def rms_compare(gen, shape, dtype, grouped: bool = False) -> float:
     err = float((got.float() - want.float()).abs().max())
     tol = TOL["rmsnorm"][dtype]
     check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-          f"rmsnorm {shape} w {tuple(w.shape)} {dtype}: max abs err {err}")
+          f"rmsnorm {shape} w {tuple(w.shape)} offset {offset} {dtype}: max abs err {err}")
     check(rms_kernel.rmsnorm.grouped_launches == n + grouped,
           f"rmsnorm {shape}: grouped launch count")
     return err
@@ -629,11 +650,14 @@ def swa_timing(gen, bh, s, d, dtype, heads: int) -> dict:
             q.view(b, heads, s, d), k.view(b, heads, s, d),
             v.view(b, heads, s, d), is_causal=True)
 
-    return {
-        "shape": [bh, s, d], "dtype": str(dtype).removeprefix("torch."),
-        **timings(kernel=lambda q, k, v: swa_kernel.swa_attention(q, k, v),
+    out = timings(kernel=lambda q, k, v: swa_kernel.swa_attention(q, k, v),
                   plain=lambda q, k, v: ref.swa_attention_ref(q, k, v),
-                  library=library, sets=sets),
+                  library=library, sets=sets)
+    return {
+        "shape": [bh, s, d], "dtype": str(dtype).removeprefix("torch."), **out,
+        # SDPA's backend for this call: the kernels it launched
+        "library_kernels": [n for n, e in out["library_device_events"].items()
+                            if not e["annotation"]],
         **bound(nbytes, 4 * d * pairs * bh, dtype),  # q.k and p.v, 2 each
     }
 
@@ -684,12 +708,33 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
         for shape in gnorm_shapes[arch]:
             rms_compare(gen, shape, f32, grouped=True)
             rms_err = max(rms_err, rms_compare(gen, shape, bf16, grouped=True))
+    # every [D] width of the main paths (mamba2 and qwen2-vl 1536, qwen2.5
+    # and qwen3-moe 2048, jamba 4096) at decode and prefill rows, in bf16
+    # and f32 (the f32-activation runs), and the route each width takes
+    widths = sorted({get_config(a).d_model for a in (ARCH, MOE_ARCH, VLM_ARCH, SSM_ARCH,
+                                                     HYBRID_ARCH)})
+    for d in widths:
+        for rows in (SERVE["batch"], b * s):
+            rms_compare(gen, (rows, d), f32)
+            rms_err = max(rms_err, rms_compare(gen, (rows, d), bf16))
+    rms_routes = {f"{d} {str(dt).removeprefix('torch.')}": rms_kernel.design(d, dt)
+                  for d in (*widths, gnorm_shapes[SSM_ARCH][0][-1]) for dt in (bf16, f32)}
+    for key, route in rms_routes.items():
+        print(f"rmsnorm design at d = {key}: {json.dumps(route)}", flush=True)
     swa_compare(gen, b * cfg.n_heads, s, cfg.d_head, None, True, f32)
     for dtype in (f32, bf16):
         for shape in RMS_SWEEP:
             rms_compare(gen, shape, dtype)
+        for d in RMS_EDGES:
+            rms_compare(gen, (3, d), dtype)
+        for d, offset in RMS_UNALIGNED:
+            rms_compare(gen, (4, d), dtype, offset=offset)
         for case in SWA_SWEEP:
             swa_compare(gen, *case, dtype)
+    edge_routes = {f"{d} {str(dt).removeprefix('torch.')}": rms_kernel.design(d, dt)["route"]
+                   for d in RMS_EDGES for dt in (bf16, f32)}
+    check(set(edge_routes.values()) == set(rms_kernel.ROUTES),
+          f"rmsnorm edge widths reach every route: {edge_routes}")
     # main-path length (ResNet-110's parameters), both nesterov settings,
     # the reference's sweep, and views at offsets into larger buffers
     sgd_err = max(sgd_compare(gen, n_resnet, nesterov) for nesterov in (False, True))
@@ -715,8 +760,10 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
             for case in ((bh, LM["seq"], cfg.d_head, None, True), SWA_SWEEP[2]))
             for dt in (f32, bf16)}}
     torch.cuda.synchronize()
+    n_rms = 6 + 8 + 4 * len(widths) + 2 * (len(RMS_SWEEP) + len(RMS_EDGES) + len(RMS_UNALIGNED))
     print(f"kernel phase: the three kernels agree with their plain versions at "
-          f"{len(RMS_SWEEP) * 2 + 6 + 8} rmsnorm (8 with a [G, D] weight), "
+          f"{n_rms} rmsnorm (8 with a [G, D] weight; routes at the edges "
+          f"{json.dumps(edge_routes)}), "
           f"{len(SWA_SWEEP) * 2 + 4} swa_attention and "
           f"{2 + 2 * len(SGD_SWEEP) + 3} fused_sgd_update cases; the rmsnorm "
           f"and swa_attention Functions' gradients agree with autograd of the "
@@ -726,11 +773,18 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
         "rmsnorm": {"max_abs_err": rms_err,
                     "backward_max_abs_err": backward["rmsnorm"],
                     "backward_grouped_max_abs_err": backward["rmsnorm_grouped"],
+                    "design": rms_routes, "edge_routes": edge_routes,
                     "prefill": rms_timing(gen, b * s, cfg.d_model, bf16),
                     "decode": rms_timing(gen, SERVE["batch"], cfg.d_model, bf16),
+                    # the other [D] widths of the main paths, at prefill rows
+                    "widths": {str(d): rms_timing(gen, b * s, d, bf16)
+                               for d in widths if d != cfg.d_model},
                     "gnorm": {arch: {"prefill": rms_grouped_timing(gen, shapes[0], bf16),
                                      "decode": rms_grouped_timing(gen, shapes[1], bf16)}
-                              for arch, shapes in gnorm_shapes.items()}},
+                              for arch, shapes in gnorm_shapes.items()},
+                    # mamba2's gated runs use f32 activations
+                    "gnorm_f32": {SSM_ARCH: {"prefill": rms_grouped_timing(
+                        gen, gnorm_shapes[SSM_ARCH][0], f32)}}},
         "swa_attention": {"max_abs_err": swa_err,
                           "backward_max_abs_err": backward["swa_attention"],
                           "prefill": swa_timing(gen, b * cfg.n_heads, s,
@@ -2129,7 +2183,9 @@ def main() -> int:
                 "launches_per_hybrid_decode_step": (hybrid["serve"]["launches"][name]
                                                     / hybrid["serve"]["decode_steps"]),
                 "backward_grouped_max_abs_err": k["backward_grouped_max_abs_err"],
-                "at_gnorm": k["gnorm"]} if name == "rmsnorm" else {}),
+                "at_gnorm": k["gnorm"], "at_gnorm_f32": k["gnorm_f32"],
+                "at_widths": k["widths"], "design": k["design"],
+                "edge_routes": k["edge_routes"]} if name == "rmsnorm" else {}),
             "backward_max_abs_err": k["backward_max_abs_err"],
             "max_abs_err": k["max_abs_err"],
             **k["prefill"], "kernel_ms": k["prefill"]["ms"],  # the issue's name

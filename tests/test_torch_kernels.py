@@ -37,11 +37,19 @@ SWA_CASES = [
 # On the card only: many band-skipped tiles, a window that is a multiple
 # of no tile (too slow for the reference's interpret mode on the CPU).
 SWA_CUDA_ONLY = [(4, 2048, 128, 512, True), (2, 200, 80, None, True)]
-RMS_CASES = [(4, 128, 512), (1, 7, 64), (300, 1024), (2, 2048)]
+# the reference's sweep, then the edges of csrc/rmsnorm.cu's routes: rows
+# of 32 and 33 16-byte vectors (small and wide route) in bf16 (d = 256,
+# 264) and f32 (128, 132), of 128 and 129 vectors (a row within a warp,
+# a row across the warps of a block) in f32 (512, 516) and bf16 (1024,
+# 1032), and of 1024 and 1025 vectors (wide and general route) in f32
+# (4096, 4100) and bf16 (8192, 8200)
+RMS_CASES = [(4, 128, 512), (1, 7, 64), (300, 1024), (2, 2048),
+             (3, 256), (3, 264), (5, 128), (5, 132), (2, 516), (2, 1032),
+             (2, 4100), (2, 8192), (2, 8200)]
 # x [..., G, D] with a weight [G, D] (a gain per head: Mamba-2's gated norm
 # of y [B, S, H, P]); mamba2-780m's decode shape (48 heads of 64), a
-# smoke-size prefill shape, a width off the vector
-RMS_GROUPED_CASES = [(4, 1, 48, 64), (2, 9, 6, 16), (3, 5, 4, 100)]
+# smoke-size prefill shape, a width off the vector, jamba's 128 heads of 64
+RMS_GROUPED_CASES = [(4, 1, 48, 64), (2, 9, 6, 16), (3, 5, 4, 100), (2, 3, 128, 64)]
 
 
 def _swa_inputs(bh, s, d, seed):
