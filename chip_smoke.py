@@ -13,7 +13,9 @@
    w [G, D], at mamba2-780m's and jamba's gated-norm shapes, at every
    [D] width of the main paths in both dtypes, on each side of each of
    its route edges and on unaligned views, printing the route and design
-   the built library reports for each main-path width), and times
+   the built library reports for each main-path width; swa_attention also
+   with queries and keys of different lengths and queries at an offset,
+   at whisper-base's encoder, cross-attention and decode shapes), and times
    kernel, plain version and the PyTorch library call that computes the
    same function (yardstick only; for the [G, D] route two calls,
    F.rms_norm then the product with 1 + w); and holds the gradients of
@@ -68,7 +70,20 @@
    prefill at capacity factor 8 with the two faulty-state controls, both
    gated in bf16 and with f32 activations (HYBRID_GATED), and the serve
    of phase 4 (24 rmsnorm launches a decode step);
-10. train phase: the elastic trainer on ResNet-110 at its full published
+10. audio phase: whisper-base at full published width and depth (6 + 6
+   layers, d_model 512, 8 heads of 64, 1,500 frame embeddings, 97 M
+   parameters in bf16, random from a seeded CUDA generator): a [4, 448]
+   prefill over frames at scale 0.1 (18 swa_attention launches: 6 encoder
+   self-attentions over the frames, 6 causal decoder self-attentions, 6
+   cross-attentions; no rmsnorm) held against the plain versions, decode
+   against prefill over CONTROL_POSITIONS positions with the encoder's
+   output in the cache (6 swa_attention launches a step, the
+   cross-attention's one query row against 1,500 frames) with two
+   controls that must fail that gate (the KV cache zeroed; the encoder's
+   output zeroed), a profile of a prefill and a decode step, and the serve
+   of phase 4 on a cache whose encoder output stays at zeros, as the
+   reference serves it;
+11. train phase: the elastic trainer on ResNet-110 at its full published
    size (random weights from a seeded CUDA generator, CifarLike data of
    CIFAR-10's 50,000 images, 128 images per worker): the paper's Table 2
    pattern on one card, 20 steps at w = 4, stop, restart at w = 8 with
@@ -79,7 +94,7 @@
    trained state's gradients, one train step's loss and gradient on the
    card against the same step in f32 on the CPU, an exact-resume check
    (5 + 5 steps against 10) and a profile of the train step;
-11. lm_train phase: the dense LM trainer on qwen2.5-3b at full width and
+12. lm_train phase: the dense LM trainer on qwen2.5-3b at full width and
    depth, f32 master parameters in one flat buffer (random, from a seeded
    CUDA generator), bf16 compute, the reference trainer's defaults
    (AdamW, TokenStream, 8 sequences of 128 tokens, base LR 3e-4) on a
@@ -94,7 +109,7 @@
    of 2 steps, the f32 lm_logits products timed alone, and an exact-resume
    check at the smoke config (5 + 5 steps through the CheckpointStore
    against 10);
-12. dp phase: data-parallel ResNet-110 at full size through
+13. dp phase: data-parallel ResNet-110 at full size through
    ``launch.explicit_allreduce``: 4 ranks, each its own process with its
    own CUDA context on the one card, 128 images each (global batch 512,
    LR 1.2e-3 by eq. 7), 5 steps under each of psum, ring and
@@ -107,11 +122,23 @@
    agrees with the one-process train step at the global batch, and two
    faulty exchanges built here (the sum not divided by w; the all-gather
    skipped) fail that gate; the first step's exchanged gradients agree
-   with dist.all_reduce's.
+   with dist.all_reduce's;
+14. lm_dp phase: the LM job under the paper's exchange, qwen2.5-3b at full
+   width cut to 2 layers (776 M f32 parameters), 4 ranks sharing the card
+   over gloo as in phase 13, 2 rows of 128 tokens each, momentum SGD at a
+   constant LR of 0.05, 2 steps under each of psum, ring and
+   doubling_halving: the same gates (each rank measures its update against
+   the one-process step's, saved to a file, and psum's ranks their spread
+   by two all-reduces: a full-width LM's parameters are not shipped back),
+   5 rmsnorm, 2 swa_attention and 1 fused_sgd_update launches per rank and
+   step, and the bytes each rank sends per all-reduce (4.66 GB for the
+   ring).
 
 Launch counts are set to 0 just before each serve, each counted prefill,
-the training runs and the LM step and training runs and read just after; each dp rank does the same around its
-steps under each algorithm. Any failed check raises, and the script exits non-zero.
+the audio decode, the training runs and the LM step and training runs and
+read just after; each dp and lm_dp rank does the same around its steps
+under each algorithm. Any failed check raises, and the script exits
+non-zero.
 The last two lines are the kernels' JSON line and the device line. It
 exits non-zero, printing no result, when there is no CUDA device.
 """
@@ -182,6 +209,17 @@ SWA_SWEEP = [(2, 256, 64, None, True), (2, 256, 64, 128, True),
              (2, 200, 80, None, True), (4, 2048, 128, 512, True),
              (2, 1000, 128, None, True), (2, 333, 80, 100, True),
              (1, 64, 256, None, True)]
+# Queries and keys of different lengths, queries at an offset
+# (bh, sq, sk, d, causal, window, q_offset): whisper-base's encoder
+# self-attention (1,500 frames: 23 tiles of 64 and one of 28), its
+# decoder's cross-attention at Whisper's 448-token text context and at a
+# decode step's one query row, and causal continuations at an offset,
+# with a window that crosses key tiles and without one.
+SWA_CROSS_SWEEP = [(32, 1500, 1500, 64, False, None, 0),
+                   (32, 448, 1500, 64, False, None, 0),
+                   (32, 1, 1500, 64, False, None, 0),
+                   (4, 100, 1124, 128, True, 300, 1024),
+                   (2, 20, 84, 64, True, None, 64)]
 RMS_SWEEP = [(4, 128, 512), (1, 7, 64), (300, 1024), (2, 2048), (3, 100)]
 # rmsnorm's route edges (csrc/rmsnorm.cu), in rows of 16-byte vectors:
 # 32 | 33 (small | wide: bf16 d = 256 | 264, f32 128 | 132), 128 | 129 (a
@@ -377,6 +415,62 @@ SSM_CONTROL_FAULTS = ("no_cache", "ssm_state_zeroed")
 SSM_TRAIN = dict(batch=8, seq=128, steps=20, base_lr=3e-4, warmup=5)
 SSM_BF16_STEPS = 5
 SSM_BF16_LOSS_LIMIT = 1e-2  # the bf16 step's loss, kernels vs plain
+# The audio family (audio phase): whisper-base at full published width and
+# depth (arXiv:2212.04356: 6 + 6 layers, d_model 512, 8 heads of 64, d_ff
+# 2048, vocab 51,865, 1,500 frame embeddings from the stubbed front end),
+# nothing cut. A prefill of AUDIO_PREFILL tokens (Whisper's 448-token text
+# context) over frames at scale 0.1, as tests/test_decode_consistency.py
+# draws them, held to the plain versions under the bf16 contract, as the
+# decoder-only families are: kernels and plain versions differ only in
+# attention's rounding (P split hi + lo against f32 softmax weights), here
+# in 18 attentions a pass (6 encoder, 6 decoder, 6 cross) of 64-wide heads
+# over 1,500 frames, no rmsnorm. Decode against prefill over
+# CONTROL_POSITIONS positions by decode_gate, with the encoder's output in
+# the cache, and two controls that must fail it: "no_cache" (the KV cache
+# zeroed before every step) and "enc_zeroed" (the encoder's output zeroed:
+# the cross-attention reads no audio). The serve of phase 4 runs on a
+# cache whose encoder output stays at zeros, as the reference's serve loop
+# passes no frames.
+AUDIO_ARCH = "whisper-base"
+AUDIO_PARAMS = 97_241_088  # param_count()
+AUDIO_PREFILL = (4, 448)
+AUDIO_FRAMES_SCALE = 0.1
+AUDIO_CONTROL_FAULTS = ("no_cache", "enc_zeroed")
+# The LM job under the paper's exchange (lm_dp phase): qwen2.5-3b at full
+# published width cut from 36 layers to LM_DP_LAYERS (four full-width ranks
+# of 36 layers do not share one 80 GB card: one alone peaks at 67.8 GB in
+# the lm_train phase), 776,485,888 f32 parameters, as 4 spawned ranks
+# sharing the card over gloo, 2 rows of 128 tokens each (global batch 8 x
+# 128), momentum SGD at a constant LR of 0.05 (the reference example's),
+# 2 steps under each of psum, ring and doubling_halving, each step's
+# exchange timed (the untimed first-step check has already set up the
+# pinned buffers and gloo's pairs), so 2 warm exchanges an algorithm and
+# rank. Per rank and step: 5 rmsnorm (2 a layer and the final norm), 2
+# swa_attention and 1 fused_sgd_update launches, the last at
+# n = LM_DP_PARAMS, which the kernel phase holds against the plain update
+# (the one-process reference launches the same kernel). The
+# faulty-exchange controls run 1 step each, with no first-step check.
+LM_DP_LAYERS = 2
+LM_DP_PARAMS = 776_485_888
+LM_DP = dp.DPRun(cfg=dataclasses.replace(get_config(ARCH), n_layers=LM_DP_LAYERS),
+                 world=4, steps=2, m_per_worker=2, seq=128, base_lr_1w=0.05 / 4,
+                 timeout_s=240)
+# Each rank's update p2 - p0 against the one-process step at the global
+# batch of 8 x 128 tokens (same init, batches and LR): relative L2 error
+# below LM_DP_UPDATE_LIMIT. Set before the first run from this reasoning.
+# Per token the forward and backward are the same bf16 computations in
+# both; what differs is where the batch sum is rounded (each rank's bf16
+# weight gradients over 256 tokens, summed in f32 by the exchange, against
+# one bf16 rounding over 1,024 tokens) and cuBLAS's choice of algorithm at
+# 256 and 1,024 rows, about 2^-9 relative per rounded element. Carried
+# through 2 layers and 2 SGD steps that is 0.003-0.02 (on the CPU the
+# port's and the reference's bf16 gradients, which round at more places,
+# differ by 0.009-0.014 at 2 layers: tests/test_torch_train_lm.py). A
+# faulty exchange is far off: the sum not divided by w gives w - 1 = 3;
+# the all-gather skipped leaves each rank its own segment of the sum and
+# partial sums elsewhere, about 0.5. The limit is the dp phase's 0.1: 5x
+# above the expectation's top and 5x below the nearer control.
+LM_DP_UPDATE_LIMIT = 0.1
 
 
 def check(ok: bool, what: str) -> None:
@@ -504,15 +598,21 @@ def rms_compare(gen, shape, dtype, grouped: bool = False, offset: int = 0) -> fl
     return err
 
 
-def swa_compare(gen, bh, s, d, window, causal, dtype) -> float:
-    q, k, v = (randn(gen, (bh, s, d), dtype) for _ in range(3))
-    got = swa_kernel.swa_attention(q, k, v, causal=causal, window=window)
-    want = ref.swa_attention_ref(q, k, v, causal=causal, window=window)
+def swa_compare(gen, bh, s, d, window, causal, dtype, sk=None, q_offset=0) -> float:
+    """The kernel against the plain version on q [bh, s, d] and k, v
+    [bh, sk, d] (sk = s when None), query row i at position q_offset + i."""
+    sk = s if sk is None else sk
+    q = randn(gen, (bh, s, d), dtype)
+    k, v = (randn(gen, (bh, sk, d), dtype) for _ in range(2))
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = swa_kernel.swa_attention(q, k, v, **kw)
+    want = ref.swa_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     err = float((got.float() - want.float()).abs().max())
     tol = TOL["swa_attention"][dtype]
     check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-          f"swa_attention {(bh, s, d, window, causal)} {dtype}: max abs err {err}")
+          f"swa_attention {(bh, s, sk, d, window, causal, q_offset)} {dtype}: "
+          f"max abs err {err}")
     return err
 
 
@@ -637,24 +737,30 @@ def rms_grouped_timing(gen, shape, dtype) -> dict:
     }
 
 
-def swa_timing(gen, bh, s, d, dtype, heads: int) -> dict:
+def swa_timing(gen, bh, s, d, dtype, heads: int, sk=None, causal: bool = True) -> dict:
+    """Causal self-attention over [bh, s, d], or with ``sk`` and
+    ``causal=False`` queries [bh, s, d] against keys [bh, sk, d] (whisper's
+    encoder, cross-attention and decode step)."""
     elt = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 4 * bh * s * d * elt
-    sets = copies(lambda: tuple(randn(gen, (bh, s, d), dtype) for _ in range(3)),
-                  nbytes)
-    pairs = s * (s + 1) // 2  # causal, no window: the pairs this work needs
+    sk = s if sk is None else sk
+    nbytes = 2 * bh * (s + sk) * d * elt  # q and o, k and v
+    sets = copies(lambda: (randn(gen, (bh, s, d), dtype),
+                           *(randn(gen, (bh, sk, d), dtype) for _ in range(2))), nbytes)
+    # the (query, key) pairs this work needs: the causal band or all
+    pairs = s * (s + 1) // 2 if causal else s * sk
     b = bh // heads
 
     def library(q, k, v):
         return F.scaled_dot_product_attention(
-            q.view(b, heads, s, d), k.view(b, heads, s, d),
-            v.view(b, heads, s, d), is_causal=True)
+            q.view(b, heads, s, d), k.view(b, heads, sk, d),
+            v.view(b, heads, sk, d), is_causal=causal)
 
-    out = timings(kernel=lambda q, k, v: swa_kernel.swa_attention(q, k, v),
-                  plain=lambda q, k, v: ref.swa_attention_ref(q, k, v),
+    out = timings(kernel=lambda q, k, v: swa_kernel.swa_attention(q, k, v, causal=causal),
+                  plain=lambda q, k, v: ref.swa_attention_ref(q, k, v, causal=causal),
                   library=library, sets=sets)
     return {
-        "shape": [bh, s, d], "dtype": str(dtype).removeprefix("torch."), **out,
+        "shape": [bh, s, d] if sk == s else [bh, s, sk, d], "causal": causal,
+        "dtype": str(dtype).removeprefix("torch."), **out,
         # SDPA's backend for this call: the kernels it launched
         "library_kernels": [n for n, e in out["library_device_events"].items()
                             if not e["annotation"]],
@@ -682,6 +788,19 @@ def sgd_timing(gen, n) -> dict:
                   library=lambda p, g, mu, o: o.step(), sets=sets),
         **bound(nbytes, 6 * n, torch.float32),  # 3 multiplies, 3 adds
     }
+
+
+def audio_swa_timings(gen) -> dict:
+    """swa_attention at whisper-base's shapes (AUDIO_PREFILL clips of its
+    1,500 frames, 8 heads of 64): the encoder's self-attention, the
+    decoder's cross-attention over the frames at the prefill and at a
+    decode step; none causal."""
+    c = get_config(AUDIO_ARCH)
+    b, s = AUDIO_PREFILL
+    bh, frames = b * c.n_heads, c.n_frontend_tokens
+    return {name: swa_timing(gen, bh, sq, c.d_head, torch.bfloat16, c.n_heads, sk=frames,
+                             causal=False)
+            for name, sq in (("encoder", frames), ("cross_prefill", s), ("cross_decode", 1))}
 
 
 def kernel_phase(cfg, n_resnet: int) -> dict:
@@ -731,13 +850,19 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
             rms_compare(gen, (4, d), dtype, offset=offset)
         for case in SWA_SWEEP:
             swa_compare(gen, *case, dtype)
+        for bh, sq, sk, d, causal, window, q_offset in SWA_CROSS_SWEEP:
+            swa_compare(gen, bh, sq, d, window, causal, dtype, sk=sk, q_offset=q_offset)
     edge_routes = {f"{d} {str(dt).removeprefix('torch.')}": rms_kernel.design(d, dt)["route"]
                    for d in RMS_EDGES for dt in (bf16, f32)}
     check(set(edge_routes.values()) == set(rms_kernel.ROUTES),
           f"rmsnorm edge widths reach every route: {edge_routes}")
-    # main-path length (ResNet-110's parameters), both nesterov settings,
-    # the reference's sweep, and views at offsets into larger buffers
-    sgd_err = max(sgd_compare(gen, n_resnet, nesterov) for nesterov in (False, True))
+    # main-path lengths (ResNet-110's parameters; the lm_dp model's, whose
+    # 3.1 GB buffers pass 2^31 bytes, while the card is still nearly
+    # empty), both nesterov settings, the reference's sweep, and views at
+    # offsets into larger buffers
+    sgd_err = max(sgd_compare(gen, n, nesterov) for n in (n_resnet, LM_DP_PARAMS)
+                  for nesterov in (False, True))
+    torch.cuda.empty_cache()
     for n in SGD_SWEEP:
         for nesterov in (False, True):
             sgd_compare(gen, n, nesterov)
@@ -764,8 +889,10 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
     print(f"kernel phase: the three kernels agree with their plain versions at "
           f"{n_rms} rmsnorm (8 with a [G, D] weight; routes at the edges "
           f"{json.dumps(edge_routes)}), "
-          f"{len(SWA_SWEEP) * 2 + 4} swa_attention and "
-          f"{2 + 2 * len(SGD_SWEEP) + 3} fused_sgd_update cases; the rmsnorm "
+          f"{(len(SWA_SWEEP) + len(SWA_CROSS_SWEEP)) * 2 + 4} swa_attention "
+          f"({len(SWA_CROSS_SWEEP) * 2} of them with Sq != Sk or an offset) and "
+          f"{4 + 2 * len(SGD_SWEEP) + 3} fused_sgd_update cases (4 at n = "
+          f"{n_resnet} and {LM_DP_PARAMS}); the rmsnorm "
           f"and swa_attention Functions' gradients agree with autograd of the "
           f"plain versions at 6 and 4 cases "
           f"(max abs err {json.dumps(backward)})", flush=True)
@@ -790,17 +917,22 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
                           "prefill": swa_timing(gen, b * cfg.n_heads, s,
                                                 cfg.d_head, bf16, cfg.n_heads),
                           "prefill_f32": swa_timing(gen, b * cfg.n_heads, s,
-                                                    cfg.d_head, f32, cfg.n_heads)},
+                                                    cfg.d_head, f32, cfg.n_heads),
+                          # whisper-base's three attention shapes in bf16
+                          "audio": audio_swa_timings(gen)},
         "fused_sgd_update": {"max_abs_err": sgd_err,
-                             "train": sgd_timing(gen, n_resnet)},
+                             "train": sgd_timing(gen, n_resnet),
+                             "lm_dp": sgd_timing(gen, LM_DP_PARAMS)},
     }
 
 
 # ------------------------------------------------------------- main path --
-def serve_phase(cfg, params, label: str = "serve", per_step: int | None = None) -> dict:
+def serve_phase(cfg, params, label: str = "serve", per_step: int | None = None,
+                swa_per_step: int = 0) -> dict:
     """SERVE through launch.serve with the launch counts read around it;
     ``per_step``: the rmsnorm launches a decode step must make (the
-    decoder-only transformers' 2 x layers + 1 when None)."""
+    decoder-only transformers' 2 x layers + 1 when None); ``swa_per_step``
+    its swa_attention launches (whisper's cross-attention)."""
     # warm-up at a tiny length (cuBLAS handles, allocator), not counted
     serve(cfg, batch=SERVE["batch"], prompt_len=4, new_tokens=2,
           params=params, device=DEVICE, log=False)
@@ -830,32 +962,44 @@ def serve_phase(cfg, params, label: str = "serve", per_step: int | None = None) 
     check(bool(torch.isfinite(last).all()), "serve last-step logits finite")
     check(counts["rmsnorm"] == per_step * steps,
           f"rmsnorm launches {counts['rmsnorm']} != {per_step} x {steps} steps")
-    check(counts["swa_attention"] == 0, "no swa_attention launch in decode")
+    check(counts["swa_attention"] == swa_per_step * steps,
+          f"swa_attention launches {counts['swa_attention']} != {swa_per_step} x "
+          f"{steps} steps")
     return out
 
 
+# which cache entries each fault of decode_vs_prefill zeroes before every step
+ZEROED = {"no_cache": lambda path: path != "enc",
+          "ssm_state_zeroed": lambda path: path.endswith("ssm"),
+          "enc_zeroed": lambda path: path == "enc"}
+
+
 def decode_vs_prefill(decode, model, params, tokens, logits, n: int,
-                      fault: str | None = None, cache_dtype=torch.bfloat16) -> dict:
+                      fault: str | None = None, cache_dtype=torch.bfloat16,
+                      enc: torch.Tensor | None = None) -> dict:
     """Step the decoder over the first n prompt tokens and compare each
-    step's logits with the prefill's at that position.
+    step's logits with the prefill's at that position. ``enc``: whisper's
+    encoder output, written into the cache's ``enc`` before the first step.
 
     fault injects a cache fault from outside the model, as a control that
     the gate must catch: "pos_lag" passes pos t-1 at step t (each token
-    overwrites the previous token's slot), "no_cache" zeroes the cache
-    before every step (decode sees no history), "ssm_state_zeroed" zeroes
-    every SSM state before every step and keeps the conv windows and KV
-    caches (the recurrence loses its history beyond the conv's last
-    K - 1 inputs).
+    overwrites the previous token's slot), "no_cache" zeroes the cache but
+    ``enc`` before every step (decode sees no history), "ssm_state_zeroed"
+    zeroes every SSM state before every step and keeps the conv windows
+    and KV caches (the recurrence loses its history beyond the conv's last
+    K - 1 inputs), "enc_zeroed" zeroes whisper's ``enc`` (the
+    cross-attention reads no audio) and keeps the KV cache.
     """
     b = tokens.shape[0]
     cache = pspec.init_params(None, model.cache_specs(
         InputShape("d", tokens.shape[1], b, "decode"), cache_dtype), DEVICE)
+    if enc is not None:
+        cache["enc"].copy_(enc)
     argmax, diff, finite = [], [], []
     for t in range(n):
         pos = max(t - 1, 0) if fault == "pos_lag" else t
         for path, c in pspec.flatten(cache).items():
-            if fault == "no_cache" or (fault == "ssm_state_zeroed"
-                                       and path.endswith("ssm")):
+            if fault in ZEROED and ZEROED[fault](path):
                 c.zero_()
         step, cache = decode(params, cache, {
             "tokens": tokens[:, t:t + 1],
@@ -1503,6 +1647,82 @@ def hybrid_phase(smi: str) -> dict:
 
 
 # ------------------------------------------------------------- training --
+# ---------------------------------------------------------------- audio --
+def audio_phase(smi: str) -> dict:
+    cfg = get_config(AUDIO_ARCH)
+    model, params, out = init_full(cfg, AUDIO_ARCH)
+    check(out["n_params"] == AUDIO_PARAMS == cfg.param_count(),
+          f"{AUDIO_ARCH} at full width: {out['n_params']} parameters")
+    b, s = AUDIO_PREFILL
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    tokens = torch.as_tensor(TokenStream(cfg.vocab_size, s, seed=5).batch(0, b)["tokens"],
+                             device=DEVICE)
+    batch = {"tokens": tokens,
+             "frames": randn(gen, (b, cfg.n_frontend_tokens, cfg.d_model), torch.bfloat16,
+                             AUDIO_FRAMES_SCALE)}
+    torch.cuda.reset_peak_memory_stats()
+    r = prefill_vs_plain(model, params, batch)
+    logits = r.pop("logits")
+    del r["plain"]
+    finite = bool(torch.isfinite(logits).all())
+
+    # decode against prefill, the encoder's output in the cache; controls
+    enc = model.encode(params, batch["frames"])
+    decode = make_decode_step(model, device=DEVICE)
+    ops.reset_launch_counts()
+    sound = decode_vs_prefill(decode, model, params, tokens, logits, CONTROL_POSITIONS, enc=enc)
+    decode_launches = ops.launch_counts()
+    controls = {f: decode_vs_prefill(decode, model, params, tokens, logits,
+                                     CONTROL_POSITIONS, fault=f, enc=enc)
+                for f in AUDIO_CONTROL_FAULTS}
+    r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del logits
+
+    # where the time goes: one prefill and one decode step (cross-attention
+    # over the 1,500 frames of the encoder's output)
+    prefill = make_prefill(model, device=DEVICE)
+    cache = pspec.init_params(None, model.cache_specs(
+        InputShape("p", SERVE["prompt_len"], b, "decode")), DEVICE)
+    cache["enc"].copy_(enc)
+    step_batch = {"tokens": tokens[:, :1],
+                  "pos": torch.full((b,), SERVE["prompt_len"] // 2, dtype=torch.int32,
+                                    device=DEVICE)}
+    one_decode = lambda: decode(params, cache, step_batch)  # noqa: E731
+    one_prefill = lambda: prefill(params, batch)  # noqa: E731
+    r["profile"] = {
+        "decode_step": {**device_profile(one_decode, 4),
+                        "groups_ms_per_call": op_groups(cfg, one_decode, 2)},
+        "prefill": {**device_profile(one_prefill, 2),
+                    "groups_ms_per_call": op_groups(cfg, one_prefill, 1)}}
+    del cache, enc
+    out.update(prefill=r, frames=[b, cfg.n_frontend_tokens, cfg.d_model],
+               decode_vs_prefill=sound, decode_vs_prefill_faulty_controls=controls,
+               decode_launches_per_step={k: v / CONTROL_POSITIONS
+                                         for k, v in decode_launches.items()})
+    out["serve"] = serve_phase(cfg, params, "audio_serve", per_step=0,
+                               swa_per_step=cfg.n_layers)
+    print(f"audio phase [{smi}]: " + json.dumps(out), flush=True)
+
+    per_prefill = {"rmsnorm": 0, "swa_attention": cfg.encoder_layers + 2 * cfg.n_layers,
+                   "fused_sgd_update": 0}
+    check(r["launches"] == per_prefill, f"audio prefill launches {r['launches']}")
+    check(decode_launches == {"rmsnorm": 0, "swa_attention": cfg.n_layers * CONTROL_POSITIONS,
+                              "fused_sgd_update": 0},
+          f"audio decode launches {decode_launches} over {CONTROL_POSITIONS} steps")
+    check(finite, "audio prefill logits finite")
+    check(contract(r), f"audio kernels vs plain prefill: rel err {r['rel_err_vs_plain']}, "
+          f"argmax {r['argmax_agree_vs_plain']}")
+    check(sound["finite"] and sound["last_shape"] == [b, 1, cfg.vocab_size],
+          f"audio decode logits {sound['last_shape']}")
+    check(decode_gate(sound), f"audio decode vs prefill: {sound}")
+    for fault, c in controls.items():
+        check(not decode_gate(c), f"audio decode vs prefill gate passed the faulty "
+              f"control {fault}: {c}")
+    out["launches"] = {k: out["serve"]["launches"][k] + r["launches"][k]
+                       + decode_launches[k] for k in r["launches"]}
+    return out
+
+
 class RecordingStore(CheckpointStore):
     """A CheckpointStore that keeps a copy of the last state it saved and
     of the last state it restored, for the bit-exact restore check."""
@@ -1979,111 +2199,161 @@ def _no_all_gather(x, group=None, algorithm="ring"):
     return x.copy_(buf[:n])
 
 
-def faulty_rank(rank, run, init_method, out_dir):
-    """A dp rank whose train step exchanges through each faulty exchange
-    in turn (a test double: the package has no switch for it)."""
-    dev = dp.join(rank, run, init_method)
+def faulty_runs(rank, run, dev) -> dict:
+    """A rank's ring run of ``run`` through each faulty exchange in turn (a
+    test double: the package has no switch for it)."""
+    out, inner = {}, steps_module.allreduce_
     try:
-        out = {}
         for fault in DP_FAULTS:
             steps_module.allreduce_ = globals()[f"_{fault}"]
-            out[fault] = dp.train(rank, run, dev)["algorithms"]["ring"]["params"]
+            out[fault] = dp.train(rank, run, dev)["algorithms"]["ring"]
+    finally:
+        steps_module.allreduce_ = inner
+    return out
+
+
+DP_LABEL = ("times: host clock, gloo over host memory with CUDA<->pinned staging, "
+            "all ranks sharing one card; not an all-reduce number of the card")
+
+
+def dp_rank(rank, run, controls, init_method, out_dir):
+    """A data-parallel rank: ``run`` under each algorithm, then, unless
+    ``controls`` is None, the faulty exchanges on ``controls``, in one
+    process (a spawn and the ranks' start on the card cost seconds); saves
+    both and their seconds."""
+    dev = dp.join(rank, run, init_method)
+    try:
+        t0 = time.perf_counter()
+        out = {"run": dp.train(rank, run, dev)}
+        t1 = time.perf_counter()
+        if controls is not None:
+            out.update(faulty_runs(rank, controls, dev))
+        out["seconds"] = {"run": t1 - t0, "controls": time.perf_counter() - t1}
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         torch.distributed.destroy_process_group()
 
 
-def one_process_update(spec) -> tuple[torch.Tensor, torch.Tensor]:
-    """The init p0 and the update p5 - p0 of the one-process train step at
-    the global batch of ``spec`` (same init, batches and LR), on the host."""
-    dev = torch.device(DEVICE)
-    state = spec.initial_state(dev)
-    p0 = state["params"].flat.clone()
-    step = make_train_step(spec.model(), sgd(), device=dev)
-    for batch in spec.batches():
-        state, _ = step(state, batch, spec.lr)
-    return p0.cpu(), (state["params"].flat - p0).cpu()
+def dp_run(spec, control_steps: int | None) -> tuple[dict, list[dict]]:
+    """``spec`` on its ranks, each holding its update to the one-process
+    step's (``dp.one_process_updates``), and, with ``control_steps``, each
+    faulty exchange under ring for that many steps in the same ranks.
+    Returns ``dp.summary`` with the init digests, the psum ranks' spread
+    over the largest element of the update, the controls' update errors
+    and the seconds; and the ranks' results."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dp_") as tmp:
+        init_digest, updates, scale = dp.one_process_updates(spec, Path(tmp))
+        t_one = time.perf_counter() - t0
+        run = dataclasses.replace(spec, reference=str(updates[-1]))
+        controls = None if control_steps is None else dataclasses.replace(
+            spec, algorithms=("ring",), steps=control_steps, check_exchange=False,
+            reference=str(updates[control_steps - 1]))
+        outs = dp.spawn(dp_rank, spec.world, (run, controls), spec.timeout_s * (
+            len(spec.algorithms) + (0 if controls is None else len(DP_FAULTS)) + 2))
+    ranks = [o["run"] for o in outs]
+    summary = dp.summary(run, ranks)
+    summary["init_digest_one_process"] = init_digest
+    summary["init_digests"] = [r["init_digest"] for r in ranks]
+    if "psum" in spec.algorithms:
+        summary["psum_rank_spread_rel"] = summary["algorithms"]["psum"]["rank_spread"] / scale
+    if controls is not None:
+        summary["controls_update_rel_err"] = {
+            fault: [o[fault]["update_rel_err_vs_reference"] for o in outs]
+            for fault in DP_FAULTS}
+    summary["seconds"] = {"one_process": t_one, "ranks": time.perf_counter() - t0 - t_one,
+                          "in_rank0": outs[0]["seconds"]}
+    return summary, ranks
 
 
-def update_err(params: torch.Tensor, p0: torch.Tensor, want: torch.Tensor) -> float:
-    got = params.double() - p0.double()
-    return float((got - want.double()).norm() / want.double().norm())
+def dp_launches(ranks: list[dict]) -> dict[str, int]:
+    """Each kernel's launches over the ranks and their algorithms."""
+    return {k: sum(r["algorithms"][alg]["launches"][k] for r in ranks
+                   for alg in r["algorithms"])
+            for k in ("rmsnorm", "swa_attention", "fused_sgd_update")}
+
+
+def dp_report(name: str, summary: dict, smi: str) -> None:
+    for alg, a in summary["algorithms"].items():
+        print(f"{name} {alg:16s} step {a['step_ms_median']} ms, exchange in the "
+              f"steps {a['exchange_ms_median']} ms (host clock, gloo over host "
+              f"memory, staging included; {summary['transport']}), "
+              f"{a['bytes_sent_per_rank']} bytes sent per rank and step, ranks "
+              f"bit-identical {a['ranks_bit_identical']}, update vs one process "
+              f"{a['update_rel_err_vs_reference']}, peak memory per rank "
+              f"{a['peak_memory_bytes']} [{smi}]", flush=True)
+
+
+def dp_gates(where: str, spec, summary: dict, ranks: list[dict],
+             per_step: dict[str, int], limit: float) -> None:
+    """The data-parallel gates: one init everywhere, staged gloo, psum's
+    ranks within DP_F32_LIMIT and the others' bits identical, ``per_step``
+    launches a rank and step, finite losses, every rank's update within
+    ``limit`` of the one-process update, the first-step exchange within
+    DP_F32_LIMIT of dist.all_reduce, and every rank of every faulty
+    exchange at or past ``limit``."""
+    check(summary["same_init"] and summary["init_digests"][0]
+          == summary["init_digest_one_process"],
+          f"{where}: one init on every rank and in the parent")
+    check(summary["transport"] == "gloo-host", f"{where}: transport {summary['transport']}")
+    for alg, a in summary["algorithms"].items():
+        at = f"{where} {alg}"
+        if alg == "psum":
+            check(summary["psum_rank_spread_rel"] <= DP_F32_LIMIT,
+                  f"{at}: ranks differ by {summary['psum_rank_spread_rel']}")
+        else:
+            check(a["ranks_bit_identical"], f"{at}: ranks' parameters differ")
+        for r in ranks:
+            got = r["algorithms"][alg]["launches"]
+            check(got == {k: v * spec.steps for k, v in per_step.items()},
+                  f"{at}: rank {r['rank']} launches {got}, {per_step} a step")
+            check(all(math.isfinite(x) for x in r["algorithms"][alg]["losses"]),
+                  f"{at}: losses finite")
+        errs = a["update_rel_err_vs_reference"]
+        check(max(errs) < limit, f"{at}: update vs one process {errs} >= {limit}")
+        check(a["max_rel_err_vs_psum"] <= DP_F32_LIMIT,
+              f"{at}: first-step exchange vs dist.all_reduce "
+              f"{a['max_rel_err_vs_psum']} > {DP_F32_LIMIT}")
+    for fault, errs in summary.get("controls_update_rel_err", {}).items():
+        check(min(errs) >= limit, f"{where}: faulty exchange {fault} passed the "
+                                  f"update gate: {errs}")
 
 
 def dp_phase(smi: str) -> dict:
     t0 = time.perf_counter()
-    ranks = {spec.world: dp.run(spec) for spec in (DP, DP_W3)}
-    t_ranks = time.perf_counter() - t0
-    controls = dp.spawn(faulty_rank, DP.world,
-                        (dataclasses.replace(DP, algorithms=("ring",)),),
-                        DP.timeout_s * 4)
-    t_controls = time.perf_counter() - t0 - t_ranks
-    out = {"label": "times: host clock, gloo over host memory with CUDA<->pinned "
-                    "staging, all ranks sharing one card; not an all-reduce "
-                    "number of the card", "card": smi, "runs": {}}
-    for spec in (DP, DP_W3):
-        p0, want = one_process_update(spec)
-        rs = ranks[spec.world]
-        summary = dp.summary(spec, rs)
-        for alg in spec.algorithms:
-            a = summary["algorithms"][alg]
-            a["update_rel_err_vs_one_process"] = [
-                update_err(r["algorithms"][alg]["params"], p0, want) for r in rs]
-            a["psum_ranks_max_rel_diff"] = max(
-                float((r["algorithms"][alg]["params"] - rs[0]["algorithms"][alg]["params"]
-                       ).abs().max()) / float((rs[0]["algorithms"][alg]["params"] - p0
-                                               ).abs().max()) for r in rs)
-        summary["init_digest_one_process"] = dp.digest(p0)
-        summary["init_digests"] = [r["init_digest"] for r in rs]
-        if spec.world == DP.world:
-            summary["controls_update_rel_err"] = {
-                fault: [update_err(c[fault], p0, want) for c in controls]
-                for fault in DP_FAULTS}
-        out["runs"][f"w{spec.world}"] = summary
-    out["seconds"] = {"ranks": t_ranks, "controls": t_controls,
-                      "total": time.perf_counter() - t0}
-    out["launches"] = sum(r["algorithms"][alg]["launches"]["fused_sgd_update"]
-                          for rs in ranks.values() for r in rs
-                          for alg in r["algorithms"])
-    for key, summary in out["runs"].items():
-        for alg, a in summary["algorithms"].items():
-            print(f"dp {key} {alg:16s} step {a['step_ms_median']:.1f} ms, exchange "
-                  f"{a['exchange_ms_median']:.2f} ms (host clock, gloo over host "
-                  f"memory, staging included; {summary['transport']}), "
-                  f"{a['bytes_sent_per_rank']} bytes sent per rank and step, "
-                  f"ranks bit-identical {a['ranks_bit_identical']}, peak memory "
-                  f"per rank {a['peak_memory_bytes']} [{smi}]", flush=True)
+    out = {"label": DP_LABEL, "card": smi, "runs": {}}
+    ranks = {}
+    for spec, control_steps in ((DP, DP.steps), (DP_W3, None)):
+        key = f"w{spec.world}"
+        out["runs"][key], ranks[key] = dp_run(spec, control_steps)
+        dp_report(f"dp {key}", out["runs"][key], smi)
+    out["launches"] = dp_launches([r for rs in ranks.values() for r in rs])
+    out["seconds"] = time.perf_counter() - t0
     print("dp phase: " + json.dumps(out), flush=True)
-
     for spec in (DP, DP_W3):
-        summary, rs = out["runs"][f"w{spec.world}"], ranks[spec.world]
-        check(summary["same_init"] and summary["init_digests"][0]
-              == summary["init_digest_one_process"],
-              f"dp w={spec.world}: one init on every rank and in the parent")
-        check(summary["transport"] == "gloo-host", f"transport {summary['transport']}")
-        for alg, a in summary["algorithms"].items():
-            where = f"dp w={spec.world} {alg}"
-            if alg == "psum":
-                check(a["psum_ranks_max_rel_diff"] <= DP_F32_LIMIT,
-                      f"{where}: ranks differ by {a['psum_ranks_max_rel_diff']}")
-            else:
-                check(a["ranks_bit_identical"], f"{where}: ranks' parameters differ")
-            for r in rs:
-                got = r["algorithms"][alg]["launches"]
-                check(got == {"rmsnorm": 0, "swa_attention": 0,
-                              "fused_sgd_update": spec.steps},
-                      f"{where}: rank {r['rank']} launches {got}")
-                check(all(math.isfinite(l) for l in r["algorithms"][alg]["losses"]),
-                      f"{where}: losses finite")
-            errs = a["update_rel_err_vs_one_process"]
-            check(max(errs) < DP_UPDATE_LIMIT,
-                  f"{where}: update vs one process {errs} >= {DP_UPDATE_LIMIT}")
-            check(a["max_rel_err_vs_psum"] <= DP_F32_LIMIT,
-                  f"{where}: first-step exchange vs dist.all_reduce "
-                  f"{a['max_rel_err_vs_psum']} > {DP_F32_LIMIT}")
-    for fault, errs in out["runs"][f"w{DP.world}"]["controls_update_rel_err"].items():
-        check(max(errs) >= DP_UPDATE_LIMIT,
-              f"faulty exchange {fault} passed the update gate: {errs}")
+        key = f"w{spec.world}"
+        dp_gates(f"dp w={spec.world}", spec, out["runs"][key], ranks[key],
+                 {"rmsnorm": 0, "swa_attention": 0, "fused_sgd_update": 1},
+                 DP_UPDATE_LIMIT)
+    return out
+
+
+def lm_dp_phase(smi: str) -> dict:
+    t0 = time.perf_counter()
+    spec = LM_DP
+    n = spec.cfg.param_count()
+    check(n == LM_DP_PARAMS, f"lm_dp: {n} parameters at {LM_DP_LAYERS} layers")
+    summary, ranks = dp_run(spec, control_steps=1)
+    summary["seconds"]["total"] = time.perf_counter() - t0
+    out = {"label": DP_LABEL, "card": smi, "layers": LM_DP_LAYERS,
+           "tokens_per_rank_step": spec.m_per_worker * spec.seq, **summary,
+           "launches": dp_launches(ranks)}
+    dp_report("lm_dp", summary, smi)
+    print("lm_dp phase: " + json.dumps(out), flush=True)
+    cfg = spec.cfg
+    dp_gates("lm_dp", spec, summary, ranks,
+             {"rmsnorm": 2 * cfg.n_layers + 1, "swa_attention": cfg.n_layers,
+              "fused_sgd_update": 1}, LM_DP_UPDATE_LIMIT)
     return out
 
 
@@ -2111,6 +2381,7 @@ def main() -> int:
     cfg = get_config(ARCH)
     n_resnet = pspec.n_params(build_model(resnet110.CONFIG).param_specs())
     kernels = kernel_phase(cfg, n_resnet)
+    torch.cuda.empty_cache()  # the fused_sgd_update checks at the lm_dp length
     print(f"kernel phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     model = build_model(cfg)
@@ -2136,6 +2407,9 @@ def main() -> int:
     hybrid = hybrid_phase(smi)
     torch.cuda.empty_cache()
     print(f"hybrid phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    audio = audio_phase(smi)
+    torch.cuda.empty_cache()
+    print(f"audio phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     trained = train_phase()
     print(f"train phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     torch.cuda.empty_cache()  # the LM trainer needs most of the card
@@ -2144,6 +2418,8 @@ def main() -> int:
     torch.cuda.empty_cache()  # the dp ranks share the card
     data_parallel = dp_phase(smi)
     print(f"dp phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    lm_dp = lm_dp_phase(smi)
+    print(f"lm_dp phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     tpu = {"rmsnorm": "src/repro/kernels/rmsnorm.py:25",
            "swa_attention": "src/repro/kernels/swa_attention.py:81",
@@ -2158,7 +2434,8 @@ def main() -> int:
             "launches": (served["launches"][name] + prefilled["launches"][name]
                          + moe["launches"][name] + vlm["launches"][name]
                          + ssm["launches"][name] + hybrid["launches"][name]
-                         + lm_trained["launches"][name]),
+                         + audio["launches"][name] + lm_trained["launches"][name]
+                         + lm_dp["launches"][name]),
             "launches_per_decode_step": served["launches"][name] / served["decode_steps"],
             "launches_per_prefill": prefilled["launches"][name],
             "launches_per_moe_decode_step": (moe["serve"]["launches"][name]
@@ -2170,6 +2447,11 @@ def main() -> int:
             "launches_lm_train": lm_trained["launches"][name],
             "launches_per_lm_train_step": lm_trained["launches"][name] / lm_trained["steps"],
             "launches_per_hybrid_prefill": hybrid["prefill"]["bf16"]["launches"][name],
+            "launches_per_audio_prefill": audio["prefill"]["launches"][name],
+            "launches_per_audio_decode_step": audio["decode_launches_per_step"][name],
+            "launches_lm_dp": lm_dp["launches"][name],  # all ranks, all algorithms
+            "launches_per_lm_dp_rank_step": lm_dp["launches"][name] / (
+                LM_DP.world * LM_DP.steps * len(LM_DP.algorithms)),
             **({"launches_per_ssm_decode_step": (ssm["serve"]["launches"][name]
                                                  / ssm["serve"]["decode_steps"]),
                 "launches_per_ssm_prefill": ssm["prefill"]["bf16"]["launches"][name],
@@ -2192,7 +2474,7 @@ def main() -> int:
             **({"at_decode": k["decode"]} if "decode" in k else {}),
             # the other dtype's route, and the design of each route timed
             # as the built library reports it
-            **({"f32": k["prefill_f32"],
+            **({"f32": k["prefill_f32"], "at_audio": k["audio"],
                 "design": {str(dt).removeprefix("torch."):
                            swa_kernel.design(dt, cfg.d_head)
                            for dt in swa_kernel.KERNELS}}
@@ -2204,13 +2486,20 @@ def main() -> int:
         "source": "src/repro_torch/csrc/fused_sgd_update.cu",
         "replaces": tpu["fused_sgd_update"],
         "tpu_counterpart": f"{tpu['fused_sgd_update']} fused_sgd_update",
-        "launches": trained["launches"]["fused_sgd_update"] + data_parallel["launches"],
+        "launches": (trained["launches"]["fused_sgd_update"]
+                     + data_parallel["launches"]["fused_sgd_update"]
+                     + lm_dp["launches"]["fused_sgd_update"]),
         "launches_train": trained["launches"]["fused_sgd_update"],
         "launches_per_train_step": trained["launches"]["fused_sgd_update"] / sgd_steps,
-        "launches_dp": data_parallel["launches"],  # all ranks, all algorithms
-        "launches_per_dp_rank_step": data_parallel["launches"] / sum(
+        # all ranks, all algorithms
+        "launches_dp": data_parallel["launches"]["fused_sgd_update"],
+        "launches_per_dp_rank_step": data_parallel["launches"]["fused_sgd_update"] / sum(
             spec.world * spec.steps * len(spec.algorithms) for spec in (DP, DP_W3)),
-        "max_abs_err": k["max_abs_err"], **k["train"], "kernel_ms": k["train"]["ms"]})
+        "launches_lm_dp": lm_dp["launches"]["fused_sgd_update"],
+        "launches_per_lm_dp_rank_step": lm_dp["launches"]["fused_sgd_update"] / (
+            LM_DP.world * LM_DP.steps * len(LM_DP.algorithms)),
+        "max_abs_err": k["max_abs_err"], **k["train"], "kernel_ms": k["train"]["ms"],
+        "at_lm_dp": k["lm_dp"]})
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on the main path")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -7,8 +7,10 @@ tensors with the same paths. The port never imports the store: callers
 flatten the tree themselves.
 
 The port keeps the reference's layouts, so the map is the identity, for
-the transformers' ``layers/...``, Mamba-2's ``layers/...`` and Jamba's
-``blocks/pos{p}/...`` alike. Where every parameter is f32 (the ResNet; an
+the transformers' ``layers/...``, Mamba-2's ``layers/...``, Jamba's
+``blocks/pos{p}/...`` and whisper's ``encoder/...`` and ``decoder/...``
+(with the decoder's ``lnx`` and ``xattn``, and ``enc_norm``/``dec_norm``)
+alike. Where every parameter is f32 (the ResNet; an
 LM stored in f32, as it trains), each array is copied into its view of
 one flat parameter buffer.
 """
@@ -28,12 +30,13 @@ def params_from_numpy(flat: dict[str, np.ndarray], cfg: ModelConfig | ResNetConf
     """Port parameters of ``cfg`` from the reference's flattened tree.
 
     The reference stores everything in f32 and casts the attention, MLP
-    and MoE matmul weights, the QKV biases, and Mamba-2's projections,
-    conv taps and D skip to the activation dtype at use
-    (``p["wq"].astype(dt)``). For an LM those are stored in ``dtype`` (its
-    ``param_dtype``: bf16 to serve, so that no step casts them; float32 to
-    train, or when the model runs in f32). Norm gains, Mamba-2's ``A_log``
-    and ``dt_bias`` stay f32 (the reference reads them in f32), and
+    and MoE matmul weights, the QKV biases (whisper's projection and MLP
+    biases), and Mamba-2's projections, conv taps and D skip to the
+    activation dtype at use (``p["wq"].astype(dt)``). For an LM those are
+    stored in ``dtype`` (its ``param_dtype``: bf16 to serve, so that no
+    step casts them; float32 to train, or when the model runs in f32).
+    Norm gains (and layernorm biases), Mamba-2's ``A_log`` and
+    ``dt_bias`` stay f32 (the reference reads them in f32), and
     ``embed``/``unembed`` stay f32 (``lm_logits`` is f32; the embedding is
     gathered, then cast). Where every parameter is f32 (a ResNet, whatever
     ``dtype``; an LM with ``dtype`` float32) they come back as one

@@ -1,9 +1,8 @@
 """Config registry of the port: ``--arch <id>`` resolution.
 
-A copy of ``repro.configs`` restricted to the configs that the port
-builds: the decoder-only transformers (dense, MoE and the VLM backbone),
-the SSM (mamba2-780m) and the hybrid (jamba-v0.1-52b). whisper-base joins
-when the audio family is ported (see ROADMAP.md).
+A copy of ``repro.configs``: the decoder-only transformers (dense, MoE
+and the VLM backbone), the SSM (mamba2-780m), the hybrid (jamba-v0.1-52b)
+and the audio encoder-decoder (whisper-base).
 """
 from __future__ import annotations
 
@@ -18,6 +17,7 @@ _ARCH_MODULES = {
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "gemma-2b": "repro_torch.configs.gemma_2b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "whisper-base": "repro_torch.configs.whisper_base",
     "qwen2.5-14b": "repro_torch.configs.qwen25_14b",
 }
 

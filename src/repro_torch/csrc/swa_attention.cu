@@ -1,16 +1,22 @@
 // Sliding-window flash attention for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/swa_attention.py:81
-// `swa_attention` (body `_kernel` at :27). q, k, v: [BH, S, D] in bf16 or
-// f32, D in {32, 64, 80, 128, 256}, output in q's dtype. softmax(q k^T /
-// sqrt(D)) v with key j visible to query i iff (not causal or j <= i) and
-// (no window or j > i - window). The online-softmax state m, l, acc is f32.
+// `swa_attention` (body `_kernel` at :27). q: [BH, Sq, D], k, v: [BH, Sk, D]
+// in bf16 or f32, D in {32, 64, 80, 128, 256}, output [BH, Sq, D] in q's
+// dtype. softmax(q k^T / sqrt(D)) v with query row i at position
+// p = q_offset + i and key j visible to it iff (not causal or j <= p) and
+// (no window or j > p - window). Self-attention is Sq = Sk, q_offset = 0;
+// cross-attention (whisper's decoder over its encoder's frames) has
+// Sq != Sk. Every query row sees at least one key (the wrapper checks).
+// The online-softmax state m, l, acc is f32.
 //
 // Bound on the H100: at the prefill shape (BH 32, S 1024, D 128, causal) the
 // inputs and output are 33.5 MB (10.0 us at 3.35 TB/s) and the band needs
 // 8.6 GFLOP (8.7 us at the 989 TFLOP/s bf16 tensor-core peak): bytes and
 // operations bound it about equally, so the kernel must stream K/V from L2
-// while the tensor cores stay busy.
+// while the tensor cores stay busy. Whisper's cross-attention at one query
+// row (BH 32, Sq 1, Sk 1500, D 64) reads 12.3 MB of K and V for 12.3 MFLOP:
+// bytes bound it (3.7 us).
 //
 // Two kernels, chosen by dtype (the wrapper says which):
 //
@@ -32,13 +38,16 @@
 //   memory, the next tile's copy overlapping this tile's math; all data
 //   stays bf16 in shared memory, rows padded to D + 8 elements (16 bytes)
 //   so that the 8 rows of each ldmatrix hit distinct banks at every D,
-//   80 included (its 160-byte rows need no swizzle box). Rows and keys
-//   past S are zero-filled by cp.async and masked: a ragged S needs no
-//   padding. Each q tile visits only the k tiles of its band,
-//   [q_lo - window + 1, q_hi]; a warp skips a tile none of its rows can
-//   see, and masks elements only on tiles that straddle the diagonal, the
-//   window edge or S. The grid launches the last (causally heaviest) q
-//   tiles first. Shared memory: (64 + 2 * 2 * 64) * (D + 8) * 2 bytes,
+//   80 included (its 160-byte rows need no swizzle box). Query rows
+//   past Sq and keys past Sk are zero-filled by cp.async and masked, each
+//   on its own: a ragged Sq or Sk needs no padding (whisper's 1,500 frames
+//   are 23 tiles of 64 and one of 28). Each q tile visits only the k tiles
+//   of its band, [p_lo - window + 1, p_hi] in positions; a warp skips a
+//   tile none of its rows can see, and masks elements only on tiles that
+//   straddle the diagonal, the window edge or Sk. The grid launches the
+//   last (causally heaviest) q tiles first. A decode step's one query row
+//   (Sq = 1) runs in a 64-row tile: 15 of warp 0's 16 rows idle, and warps
+//   1-3 skip every tile. Shared memory: (64 + 2 * 2 * 64) * (D + 8) * 2 bytes,
 //   87 KB at D = 128 and 169 KB at D = 256, opted into with
 //   cudaFuncSetAttribute; 128 threads, __launch_bounds__(128, 2).
 //   Registers (-O3, sm_90a): 210 at D = 128 without spills, 255 with 24
@@ -54,7 +63,8 @@
 // f32: CUDA cores (`swa_attention_kernel`), kept because TF32 tensor cores
 //   cannot hold the reference's f32 tolerance (2e-5). One block of 128
 //   threads per (bh, 32-row q tile); the q tile and each 32-row K/V tile
-//   are staged in shared memory as f32, rows past S zero-filled and masked;
+//   are staged in shared memory as f32, rows past Sq or Sk zero-filled and
+//   masked;
 //   each q tile loops over the k tiles of its band only. Scores: warp w
 //   owns rows w, w+4, ..., w+28 and lane j owns key j, so a row's max and
 //   sum are warp shuffles. P.V: thread t owns a fixed set of output columns
@@ -140,7 +150,8 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ src, int row0, i
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
 swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, int s, int n_qt, int causal, int window, float scale) {
+                     T* __restrict__ o, int sq, int sk, int n_qt, int causal, int window,
+                     int q_offset, float scale) {
   using Sh = Shape<D>;
   extern __shared__ float4 smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);  // [BQ][LD]
@@ -152,16 +163,18 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 
   const int bh = blockIdx.x / n_qt;
   const int q_lo = (blockIdx.x % n_qt) * BQ;
-  const int q_hi = min(q_lo + BQ, s) - 1;
-  const int64_t base = static_cast<int64_t>(bh) * s * D;
+  const int q_hi = min(q_lo + BQ, sq) - 1;
+  const int64_t q_base = static_cast<int64_t>(bh) * sq * D;
+  const int64_t kv_base = static_cast<int64_t>(bh) * sk * D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  // The band of keys any row of this tile can see.
-  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
-  const int k_end = causal ? q_hi + 1 : s;  // exclusive
+  // The band of keys any row of this tile can see (row r at position
+  // q_offset + r).
+  const int k_begin = window > 0 ? max(0, q_offset + q_lo - window + 1) : 0;
+  const int k_end = causal ? min(sk, q_offset + q_hi + 1) : sk;  // exclusive
   const int kt_first = k_begin / BK, kt_last = (k_end - 1) / BK;
 
-  load_tile<T, D>(q + base, q_lo, s, Qs, Sh::LD);
+  load_tile<T, D>(q + q_base, q_lo, sq, Qs, Sh::LD);
 
   float m_run[ROWS_PER_WARP], l_run[ROWS_PER_WARP];
 #pragma unroll
@@ -179,8 +192,8 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int kt = kt_first; kt <= kt_last; ++kt) {
     const int k_lo = kt * BK;
     __syncthreads();  // the previous tile's P.V is done with Ks, Vs, Ps
-    load_tile<T, D>(k + base, k_lo, s, Ks, Sh::LD);
-    load_tile<T, D>(v + base, k_lo, s, Vs, D);
+    load_tile<T, D>(k + kv_base, k_lo, sk, Ks, Sh::LD);
+    load_tile<T, D>(v + kv_base, k_lo, sk, Vs, D);
     __syncthreads();
 
     // Scores and online softmax: lane = key, warp rows warp + WARPS * r.
@@ -203,8 +216,8 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
     for (int r = 0; r < ROWS_PER_WARP; ++r) {
       const int row = warp + WARPS * r;
-      const int qpos = q_lo + row;
-      const bool valid = kpos < s && (!causal || kpos <= qpos) &&
+      const int qpos = q_offset + q_lo + row;
+      const bool valid = kpos < sk && (!causal || kpos <= qpos) &&
                          (window <= 0 || kpos > qpos - window);
       const float x = valid ? sc[r] * scale : -INFINITY;
       const float m_new = fmaxf(m_run[r], warp_max(x));
@@ -259,28 +272,29 @@ swa_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
   for (int r = 0; r < Sh::RPT; ++r) {
     const int row = rg * Sh::RPT + r;
-    if (q_lo + row >= s) continue;
+    if (q_lo + row >= sq) continue;
     const float inv = 1.f / fmaxf(Ls[row], 1e-30f);
-    T* out = o + base + static_cast<int64_t>(q_lo + row) * D;
+    T* out = o + q_base + static_cast<int64_t>(q_lo + row) * D;
 #pragma unroll
     for (int c = 0; c < Sh::CPT; ++c) out[c * Sh::NCG + cg] = from_f32<T>(acc[r][c] * inv);
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int s,
-                   int causal, int window, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk,
+                   int causal, int window, int q_offset, cudaStream_t stream) {
   const size_t smem = Shape<D>::SMEM_FLOATS * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(swa_attention_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int n_qt = (s + BQ - 1) / BQ;
+  const int n_qt = (sq + BQ - 1) / BQ;
   const long long blocks = static_cast<long long>(n_qt) * bh;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   swa_attention_kernel<T, D><<<static_cast<unsigned>(blocks), NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), s, n_qt, causal, window, 1.f / sqrtf(static_cast<float>(D)));
+      static_cast<T*>(o), sq, sk, n_qt, causal, window, q_offset,
+      1.f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
@@ -397,8 +411,9 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int l
 template <int D>
 __global__ void __launch_bounds__(NT, 2)
 swa_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ o, int bh, int s,
-                         int n_qt, int causal, int window, float scale_log2) {
+                         const bf16* __restrict__ v, bf16* __restrict__ o, int bh, int sq,
+                         int sk, int n_qt, int causal, int window, int q_offset,
+                         float scale_log2) {
   using Sh = Shape<D>;
   constexpr int LD = Sh::LD;
   extern __shared__ float4 smem_raw[];
@@ -409,21 +424,23 @@ swa_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / bh;  // heaviest first
   const int b = static_cast<int>(blockIdx.x) % bh;
   const int q_lo = qt * BQ;
-  const int q_hi = min(q_lo + BQ, s) - 1;
-  const int64_t base = static_cast<int64_t>(b) * s * D;
+  const int q_hi = min(q_lo + BQ, sq) - 1;
+  const int64_t q_base = static_cast<int64_t>(b) * sq * D;
+  const int64_t kv_base = static_cast<int64_t>(b) * sk * D;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;  // fragment row group, thread in quad
-  const int wq_lo = q_lo + 16 * warp, wq_hi = wq_lo + 15;
+  const int wq_lo = q_lo + 16 * warp;     // the warp's first q row
+  const int wp_lo = q_offset + wq_lo, wp_hi = wp_lo + 15;  // its rows' positions
 
   // The band of keys any row of this tile can see.
-  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
-  const int k_end = causal ? q_hi + 1 : s;  // exclusive
+  const int k_begin = window > 0 ? max(0, q_offset + q_lo - window + 1) : 0;
+  const int k_end = causal ? min(sk, q_offset + q_hi + 1) : sk;  // exclusive
   const int kt_first = k_begin / BKV;
   const int n_kt = (k_end - 1) / BKV - kt_first + 1;
 
-  load_rows<D, BQ>(q + base, q_lo, s, Qs);
-  load_rows<D, BKV>(k + base, kt_first * BKV, s, Ks);
-  load_rows<D, BKV>(v + base, kt_first * BKV, s, Vs);
+  load_rows<D, BQ>(q + q_base, q_lo, sq, Qs);
+  load_rows<D, BKV>(k + kv_base, kt_first * BKV, sk, Ks);
+  load_rows<D, BKV>(v + kv_base, kt_first * BKV, sk, Vs);
   cp_async_commit();
 
   uint32_t qf[Sh::Q_IN_REGS ? Sh::KD : 1][4];
@@ -440,8 +457,8 @@ swa_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k_lo = (kt_first + i) * BKV;
     if (i + 1 < n_kt) {  // the next tile's copy overlaps this tile's math
       const int nxt = (i + 1) % STAGES;
-      load_rows<D, BKV>(k + base, k_lo + BKV, s, Ks + nxt * Sh::KV_ELEMS);
-      load_rows<D, BKV>(v + base, k_lo + BKV, s, Vs + nxt * Sh::KV_ELEMS);
+      load_rows<D, BKV>(k + kv_base, k_lo + BKV, sk, Ks + nxt * Sh::KV_ELEMS);
+      load_rows<D, BKV>(v + kv_base, k_lo + BKV, sk, Vs + nxt * Sh::KV_ELEMS);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -460,11 +477,11 @@ swa_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // Warp-uniform: does any row of this warp see a key of this tile, and
     // do all of its rows see all of them?
-    const bool skip = wq_lo >= s || (causal && k_lo > wq_hi) ||
-                      (window > 0 && k_lo + BKV - 1 <= wq_lo - window);
+    const bool skip = wq_lo >= sq || (causal && k_lo > wp_hi) ||
+                      (window > 0 && k_lo + BKV - 1 <= wp_lo - window);
     if (!skip) {
-      const bool full = k_lo + BKV <= s && (!causal || k_lo + BKV - 1 <= wq_lo) &&
-                        (window <= 0 || k_lo > wq_hi - window);
+      const bool full = k_lo + BKV <= sk && (!causal || k_lo + BKV - 1 <= wp_lo) &&
+                        (window <= 0 || k_lo > wp_hi - window);
 
       // S = Q K^T: 16 rows x 64 keys, 8 fragments of m16n8.
       float sc[Sh::NS][4];
@@ -497,9 +514,9 @@ swa_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int n = 0; n < Sh::NS; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const int row = wq_lo + g + (e >> 1) * 8;
+            const int row = wp_lo + g + (e >> 1) * 8;  // a position
             const int key = k_lo + 8 * n + 2 * t + (e & 1);
-            const bool ok = key < s && (!causal || key <= row) &&
+            const bool ok = key < sk && (!causal || key <= row) &&
                             (window <= 0 || key > row - window);
             if (!ok) sc[n][e] = -INFINITY;
           }
@@ -565,9 +582,9 @@ swa_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int row = wq_lo + g + 8 * r;
-    if (row >= s) continue;
+    if (row >= sq) continue;
     const float inv = 1.f / fmaxf(l, 1e-30f);
-    bf16* out = o + base + static_cast<int64_t>(row) * D + 2 * t;
+    bf16* out = o + q_base + static_cast<int64_t>(row) * D + 2 * t;
 #pragma unroll
     for (int n = 0; n < Sh::ND; ++n) {
       *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
@@ -577,19 +594,19 @@ swa_attention_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int s,
-                   int causal, int window, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk,
+                   int causal, int window, int q_offset, cudaStream_t stream) {
   const size_t smem = Shape<D>::SMEM_BYTES;
   cudaError_t err = cudaFuncSetAttribute(swa_attention_mma_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const int n_qt = (s + BQ - 1) / BQ;
+  const int n_qt = (sq + BQ - 1) / BQ;
   const long long blocks = static_cast<long long>(n_qt) * bh;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   swa_attention_mma_kernel<D><<<static_cast<unsigned>(blocks), NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), bh, s, n_qt, causal, window,
+      static_cast<bf16*>(o), bh, sq, sk, n_qt, causal, window, q_offset,
       LOG2E / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
@@ -604,12 +621,12 @@ cudaError_t design(int* out) {
 
 // bf16 to the tensor-core kernel, f32 to the CUDA-core kernel.
 template <typename T, int D>
-cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* o, int bh, int s,
-                         int causal, int window, cudaStream_t stream) {
+cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* o, int bh, int sq,
+                         int sk, int causal, int window, int q_offset, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, float>) {
-    return launch<float, D>(q, k, v, o, bh, s, causal, window, stream);
+    return launch<float, D>(q, k, v, o, bh, sq, sk, causal, window, q_offset, stream);
   } else {
-    return mma::launch<D>(q, k, v, o, bh, s, causal, window, stream);
+    return mma::launch<D>(q, k, v, o, bh, sq, sk, causal, window, q_offset, stream);
   }
 }
 
@@ -635,32 +652,41 @@ cudaError_t design_d(int d, int* out) {
 }
 
 template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int bh, int s, int d,
-                     int causal, int window, cudaStream_t stream) {
+cudaError_t launch_d(const void* q, const void* k, const void* v, void* o, int bh, int sq, int sk,
+                     int d, int causal, int window, int q_offset, cudaStream_t stream) {
   switch (d) {
-    case 32: return launch_dtype<T, 32>(q, k, v, o, bh, s, causal, window, stream);
-    case 64: return launch_dtype<T, 64>(q, k, v, o, bh, s, causal, window, stream);
-    case 80: return launch_dtype<T, 80>(q, k, v, o, bh, s, causal, window, stream);
-    case 128: return launch_dtype<T, 128>(q, k, v, o, bh, s, causal, window, stream);
-    case 256: return launch_dtype<T, 256>(q, k, v, o, bh, s, causal, window, stream);
+    case 32: return launch_dtype<T, 32>(q, k, v, o, bh, sq, sk, causal, window, q_offset, stream);
+    case 64: return launch_dtype<T, 64>(q, k, v, o, bh, sq, sk, causal, window, q_offset, stream);
+    case 80: return launch_dtype<T, 80>(q, k, v, o, bh, sq, sk, causal, window, q_offset, stream);
+    case 128:
+      return launch_dtype<T, 128>(q, k, v, o, bh, sq, sk, causal, window, q_offset, stream);
+    case 256:
+      return launch_dtype<T, 256>(q, k, v, o, bh, sq, sk, causal, window, q_offset, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q, k, v, o: [bh, s, d] contiguous, 16-byte aligned. dtype: 0 = float32
-// (CUDA-core kernel), 1 = bfloat16 (tensor-core kernel). window <= 0 means
-// no window. Returns the launch's cudaError_t.
+// q, o: [bh, sq, d] and k, v: [bh, sk, d], contiguous, 16-byte aligned;
+// query row i sits at position q_offset + i. dtype: 0 = float32 (CUDA-core
+// kernel), 1 = bfloat16 (tensor-core kernel). window <= 0 means no window.
+// Every query row must see a key (the caller checks). Returns the launch's
+// cudaError_t.
 extern "C" int swa_attention_launch(const void* q, const void* k, const void* v, void* o, int bh,
-                                    int s, int d, int causal, int window, int dtype,
-                                    void* stream) {
-  if (bh <= 0 || s <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                    int sq, int sk, int d, int causal, int window, int q_offset,
+                                    int dtype, void* stream) {
+  if (bh <= 0 || sq <= 0 || sk <= 0 || q_offset < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return static_cast<int>(launch_d<float>(q, k, v, o, bh, s, d, causal, window, st));
+    case 0:
+      return static_cast<int>(
+          launch_d<float>(q, k, v, o, bh, sq, sk, d, causal, window, q_offset, st));
     case 1:
-      return static_cast<int>(launch_d<__nv_bfloat16>(q, k, v, o, bh, s, d, causal, window, st));
+      return static_cast<int>(
+          launch_d<__nv_bfloat16>(q, k, v, o, bh, sq, sk, d, causal, window, q_offset, st));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -8,6 +8,8 @@ paper's all-reduce (``collectives.dist``) over a process group.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 import torch.distributed as dist
 
@@ -31,6 +33,13 @@ def _on(batch: dict, device: torch.device) -> dict:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def _synced_clock(device: torch.device) -> float:
+    """The host clock (s) once ``device``'s queued work is done."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
 def _check_params(params: dict, device: torch.device) -> None:
     where = next(iter(flatten(params).values())).device
     if where.type != device.type:
@@ -41,7 +50,8 @@ def make_prefill(model, sh: Sharder = NO_SHARD, window: int | None = None,
                  device="cuda"):
     """(params, batch {tokens [B, S]}) -> logits [B, S, V] f32. For a VLM
     the batch may also hold patch_embeds [B, P, D], written over the first
-    P embedded rows (the vision stub)."""
+    P embedded rows (the vision stub); whisper's holds frames
+    [B, n_frames, D], the encoder's input (the audio stub)."""
     dev = resolve_device(device)
 
     def prefill(params, batch):
@@ -115,7 +125,7 @@ def value_and_flat_grad(model, params: FlatTree, batch: dict,
 
 def make_train_step(model, optimizer: Optimizer, sh: Sharder = NO_SHARD,
                     grad_exchange: str | None = None, microbatches: int = 1,
-                    group=None, device="cuda"):
+                    group=None, device="cuda", exchange_ms: list | None = None):
     """(state {params, opt}, batch, lr) -> (state, loss).
 
     The parameters and optimizer state are updated in place (for ``sgd``,
@@ -133,7 +143,9 @@ def make_train_step(model, optimizer: Optimizer, sh: Sharder = NO_SHARD,
     "psum": the accumulated gradient is all-reduced over ``group`` (None:
     the world) in place and divided by the group's size before the
     update. The step returns this rank's local loss, as the reference's
-    does.
+    does. ``exchange_ms``: a list to which each step appends the host
+    time in ms of its exchange (the all-reduce and the division), with the
+    device synchronised before and after; None records nothing.
     """
     if grad_exchange is not None:
         if grad_exchange not in ALGORITHMS:
@@ -169,8 +181,11 @@ def make_train_step(model, optimizer: Optimizer, sh: Sharder = NO_SHARD,
             grads.div_(k)
             loss = loss / k
         if grad_exchange is not None:
+            t0 = None if exchange_ms is None else _synced_clock(dev)
             allreduce_(grads, group, grad_exchange)
             grads.div_(dist.get_world_size(group))
+            if t0 is not None:
+                exchange_ms.append(1e3 * (_synced_clock(dev) - t0))
         with torch.no_grad():
             new_params, new_opt = optimizer.update(grads, state["opt"], params, lr)
         return {"params": new_params, "opt": new_opt}, loss

@@ -72,7 +72,7 @@ def swa_attention_backward(q, k, v, do, *, causal: bool = True,
     ct = ref.math_dtype(q.dtype)
     qf, kf, vf, dof = (t.to(ct) for t in (q, k, v, do))
     scale = 1.0 / math.sqrt(d)
-    mask = ref.swa_mask(s, q.device, causal=causal, window=window)
+    mask = ref.swa_mask(s, s, q.device, causal=causal, window=window)
     dq = torch.empty_like(qf)
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
     rows = max(1, min(s, _SWA_BWD_BLOCK // max(1, bh * s)))
@@ -95,10 +95,12 @@ def _rmsnorm(x, w, eps):
     return ref.rmsnorm_ref(x, w, eps=eps)
 
 
-def _swa_attention(q, k, v, causal, window):
+def _swa_attention(q, k, v, causal, window, q_offset=0):
     if _route(q, "swa_attention"):
-        return _swa.swa_attention(q, k, v, causal=causal, window=window)
-    return ref.swa_attention_ref(q, k, v, causal=causal, window=window)
+        return _swa.swa_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
+    return ref.swa_attention_ref(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -142,11 +144,25 @@ def rmsnorm(x, w, *, eps: float = 1e-6):
     return _rmsnorm(x, w, eps)
 
 
-def swa_attention(q, k, v, *, causal: bool = True, window: int | None = None):
-    """Sliding-window flash attention. q/k/v: [BH, S, D]."""
+def swa_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                  q_offset: int = 0):
+    """Sliding-window flash attention. q: [BH, Sq, D]; k, v: [BH, Sk, D];
+    query row i sits at position q_offset + i.
+
+    Gradients are taken for self-attention only (Sq = Sk, q_offset = 0):
+    ``swa_attention_backward`` has no cross-attention case, so a call with
+    Sq != Sk or an offset that wants a gradient raises
+    NotImplementedError."""
     if _wants_grad(q, k, v):
+        if k.shape[1] != q.shape[1] or q_offset:
+            raise NotImplementedError(
+                "swa_attention: the backward formula takes self-attention "
+                f"only (Sq = Sk, q_offset = 0), got Sq {q.shape[1]}, Sk "
+                f"{k.shape[1]}, q_offset {q_offset}; cross-attention's "
+                "gradient comes with whisper training (ROADMAP.md, queue 1, "
+                "left over from done slices)")
         return _SWAAttention.apply(q, k, v, causal, window)
-    return _swa_attention(q, k, v, causal, window)
+    return _swa_attention(q, k, v, causal, window, q_offset)
 
 
 def fused_sgd_update(params_flat, grads_flat, mu_flat, lr, *,

@@ -18,11 +18,13 @@ def math_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.promote_types(dtype, torch.float32)
 
 
-def swa_mask(s: int, device, *, causal: bool, window: int | None):
-    """[S, S] bool: key j visible to query i."""
-    qpos = torch.arange(s, device=device)[:, None]
-    kpos = torch.arange(s, device=device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=device)
+def swa_mask(sq: int, sk: int, device, *, causal: bool, window: int | None,
+             q_offset: int = 0):
+    """[Sq, Sk] bool: key j visible to query i, which sits at position
+    q_offset + i (the reference's ``chunked_attention`` mask)."""
+    qpos = q_offset + torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         mask &= kpos <= qpos
     if window is not None:
@@ -31,13 +33,14 @@ def swa_mask(s: int, device, *, causal: bool, window: int | None):
 
 
 def swa_attention_ref(q, k, v, *, causal: bool = True,
-                      window: int | None = None):
-    """q, k, v: [BH, S, D] -> [BH, S, D]; f32 math throughout."""
-    bh, s, d = q.shape
+                      window: int | None = None, q_offset: int = 0):
+    """q [BH, Sq, D], k, v [BH, Sk, D] -> [BH, Sq, D]; f32 math throughout."""
+    d = q.shape[-1]
     ct = math_dtype(q.dtype)
     qf, kf, vf = q.to(ct), k.to(ct), v.to(ct)
     scores = torch.einsum("bqd,bkd->bqk", qf, kf) / math.sqrt(d)
-    mask = swa_mask(s, q.device, causal=causal, window=window)
+    mask = swa_mask(q.shape[1], k.shape[1], q.device, causal=causal,
+                    window=window, q_offset=q_offset)
     scores = torch.where(mask[None], scores, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bqk,bkd->bqd", p, vf).to(q.dtype)

@@ -1,22 +1,26 @@
 """Data-parallel training with the paper's gradient exchange: w processes,
 each with its rows of the global batch, all-reduce their gradients with
 ring, halving-doubling or ``dist.all_reduce`` (torch twin of
-``examples/explicit_allreduce.py``, which trains a transformer; the port's
-trainer slice is the ResNet, so this trains the ResNet).
+``examples/explicit_allreduce.py``).
 
-  PYTHONPATH=src python -m repro_torch.launch.explicit_allreduce
   PYTHONPATH=src python -m repro_torch.launch.explicit_allreduce --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.explicit_allreduce --arch resnet-110
 
-By default ResNet-110 at full size on the card, 4 ranks sharing it over
-gloo (each rank's gradients staged through pinned host memory); with
-``--device cpu``, the smoke ResNet on the CPU. Each rank is a process
-started with the ``spawn`` method, joined by a ``file://`` rendezvous in
-a fresh temporary directory. All ranks start from one seeded init (or the
-flat parameters the caller gives) and train the same steps under each
-algorithm in turn; each returns its losses, final parameters, launch
-counts, step times, and the exchange of its first-step gradients under
-every algorithm against ``dist.all_reduce``'s, with their times. Every
-time is taken on the host clock, staging included.
+By default the example's run: qwen2.5-3b at smoke size on 8 ranks, 8
+sequences of 64 tokens each, SGD at a constant LR of 0.05, 10 steps under
+psum, ring and doubling_halving in turn. ``--arch resnet-110`` trains
+ResNet-110 instead: at full size on 4 ranks on the card, the smoke ResNet
+with ``--device cpu``. On the card the ranks share it over gloo (each
+rank's gradients staged through pinned host memory). Each rank is a
+process started with the ``spawn`` method, joined by a ``file://``
+rendezvous in a fresh temporary directory. All ranks start from one
+seeded init (or the flat parameters the caller gives) and train the same
+steps under each algorithm in turn; each returns its losses, final
+parameters (or, against a reference update, its distance from it), launch
+counts, step times and the times of the steps' exchanges, and the
+exchange of its first-step gradients under every algorithm against
+``dist.all_reduce``'s. Every time is taken on the host clock, staging
+included.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import statistics
 import tempfile
@@ -37,39 +42,61 @@ import torch.multiprocessing as mp
 
 from repro_torch.collectives import schedules
 from repro_torch.collectives.dist import ALGORITHMS, transport
-from repro_torch.configs import resnet110
-from repro_torch.data.synthetic import CifarLike
+from repro_torch.configs import get_smoke_config, resnet110
+from repro_torch.configs.base import ModelConfig
+from repro_torch.data.synthetic import CifarLike, TokenStream
 from repro_torch.engine.steps import (make_train_step, resolve_device,
                                       value_and_flat_grad)
 from repro_torch.kernels import build, ops
 from repro_torch.launch.mesh import init_data_group, local_rows
-from repro_torch.models.resnet import ResNetModel
+from repro_torch.models.registry import build_model
 from repro_torch.models.spec import flatten, views
 from repro_torch.optim import rescale_lr, sgd
 
 
 @dataclasses.dataclass(frozen=True)
 class DPRun:
-    """One data-parallel run: ``world`` ranks, ``steps`` steps under each of
-    ``algorithms``, ``m_per_worker`` rows of a ``CifarLike`` batch per rank
-    and per step, LR ``base_lr_1w * world`` (eq. 7).
+    """One data-parallel run of momentum SGD: ``world`` ranks, ``steps``
+    steps under each of ``algorithms``, ``m_per_worker`` rows of the global
+    batch per rank and per step, LR ``base_lr_1w * world`` (eq. 7).
 
+    ``cfg``: a ResNet config (a row is an image of a ``CifarLike`` batch)
+    or any LM config the registry builds (a row is a sequence of ``seq``
+    tokens from ``TokenStream(seed=0)``; the model keeps f32 masters and
+    computes in bf16, as ``launch.train``'s).
+    ``dtype``: the ResNet's activation dtype (unused for an LM).
     ``init``: flat f32 initial parameters (a CPU tensor, for example the
     reference's bridged in), or None for ``model.init`` from a generator
     seeded with 0 on each rank's device.
+    ``reference``: None, or the path of a file holding the update
+    p_steps - p0 of the same run in one process (a flat f32 CPU tensor
+    written by ``torch.save``, as ``one_process_updates`` writes it). With
+    it each rank measures its own update
+    against that one under each algorithm (``update_rel_err_vs_reference``)
+    and, under psum, the largest spread of a parameter across the ranks
+    (``rank_spread``; 0 when their digests agree), and keeps no copy of
+    its parameters: a full-width LM's would not fit the host once per rank
+    and algorithm.
+    ``check_exchange``: whether the first-step gradient is all-reduced
+    once under each algorithm and held against ``dist.all_reduce``'s
+    (``exchange_check``; it costs a forward and backward and one
+    all-reduce of each algorithm).
     ``device``: every rank's device ("cuda": the current card, which the
     ranks share; they exchange over gloo).
     """
 
-    cfg: resnet110.ResNetConfig = resnet110.CONFIG
+    cfg: ModelConfig | resnet110.ResNetConfig = resnet110.CONFIG
     world: int = 4
     algorithms: tuple[str, ...] = ("psum", "ring", "doubling_halving")
     steps: int = 5
     m_per_worker: int = 128
+    seq: int = 128
     base_lr_1w: float = 3e-4
     microbatches: int = 1
     dtype: torch.dtype = torch.bfloat16
     init: torch.Tensor | None = None
+    reference: str | None = None
+    check_exchange: bool = True
     device: str = "cuda"
     timeout_s: float = 300.0
 
@@ -77,13 +104,19 @@ class DPRun:
     def lr(self) -> float:
         return rescale_lr(self.base_lr_1w, self.world, 1)
 
-    def model(self) -> ResNetModel:
-        return ResNetModel(self.cfg, self.dtype)
+    @property
+    def is_lm(self) -> bool:
+        return not isinstance(self.cfg, resnet110.ResNetConfig)
+
+    def model(self):
+        return build_model(self.cfg, torch.float32 if self.is_lm else self.dtype)
 
     def batches(self) -> list[dict]:
-        """The global batches of the run's steps, drawn on the host from
-        CIFAR-10's 50,000 images (``CifarLike``'s default)."""
-        data = CifarLike()
+        """The global batches of the run's steps, drawn on the host: token
+        sequences for an LM, CIFAR-10's 50,000 images (``CifarLike``'s
+        default) for the ResNet."""
+        data = (TokenStream(self.cfg.vocab_size, self.seq, seed=0) if self.is_lm
+                else CifarLike())
         return [data.batch(s, self.m_per_worker * self.world)
                 for s in range(self.steps)]
 
@@ -102,7 +135,7 @@ class DPRun:
 def digest(x: torch.Tensor) -> str:
     """A short hex digest of a tensor's bytes, for comparing ranks' bits."""
     data = x.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy()
-    return hashlib.sha256(data.tobytes()).hexdigest()[:16]
+    return hashlib.sha256(data).hexdigest()[:16]
 
 
 def _sync(dev: torch.device) -> float:
@@ -111,25 +144,56 @@ def _sync(dev: torch.device) -> float:
     return time.perf_counter()
 
 
-def exchange_check(grads: torch.Tensor, algorithms, reps: int = 5) -> dict:
-    """All-reduce ``grads`` (not modified) under each algorithm ``reps``
-    times; per algorithm, the times (ms, host clock, staging included),
-    the largest difference from ``dist.all_reduce``'s sum over the largest
-    element of that sum, and the digest of the result."""
-    dev = grads.device
-    want = ALGORITHMS["psum"](grads)
-    scale = float(want.abs().max())
+def exchange_check(grads: torch.Tensor, algorithms) -> dict:
+    """All-reduce ``grads`` (not modified) once under each algorithm; per
+    algorithm, the largest difference of its result from
+    ``dist.all_reduce``'s (psum runs first) over the largest element of
+    that sum. Untimed: a first call sets up the transport (pinned host
+    buffers, gloo's pairs), so the steps' exchanges are the ones timed."""
+    want = scale = None
     out = {}
     for alg in dict.fromkeys(("psum", *algorithms)):
-        times = []
-        for _ in range(reps):
-            t0 = _sync(dev)
-            got = ALGORITHMS[alg](grads)
-            times.append(1e3 * (_sync(dev) - t0))
-        out[alg] = {"times_ms": times,
-                    "max_rel_err_vs_psum": float((got - want).abs().max()) / scale,
-                    "digest": digest(got)}
+        got = ALGORITHMS[alg](grads)
+        if want is None:
+            want, scale = got, float(got.abs().max())
+        # in place (at full width each buffer is 3.1 GB of the rank's share
+        # of the card), unless it is the sum compared against
+        diff = got.sub(want) if got is want else got.sub_(want)
+        out[alg] = {"max_rel_err_vs_psum": float(diff.abs_().max()) / scale}
+        del got, diff
     return out
+
+
+# elements a chunk when a full-width buffer is compared or reduced piecewise
+_CHUNK = 1 << 26
+
+
+def update_rel_err(params: torch.Tensor, p0: torch.Tensor, want: torch.Tensor) -> float:
+    """Relative L2 distance of the update ``params - p0`` from ``want`` (p0
+    and want on the host, want possibly memory-mapped), in f64, a chunk at
+    a time on ``params``' device."""
+    num = den = 0.0
+    dev = params.device
+    for a in range(0, want.numel(), _CHUNK):
+        w = want[a:a + _CHUNK].to(dev, torch.float64)
+        d = params[a:a + _CHUNK].double() - p0[a:a + _CHUNK].to(dev, torch.float64) - w
+        num += float(d.square().sum())
+        den += float(w.square().sum())
+    return math.sqrt(num / den)
+
+
+def rank_spread(flat: torch.Tensor) -> float:
+    """The largest difference between the ranks' values of one parameter:
+    max over elements of (max over ranks - min over ranks), by a MAX and a
+    MIN all-reduce of each chunk's host copy."""
+    spread = 0.0
+    for a in range(0, flat.numel(), _CHUNK):
+        hi = flat[a:a + _CHUNK].cpu()
+        lo = hi.clone()
+        dist.all_reduce(hi, dist.ReduceOp.MAX)
+        dist.all_reduce(lo, dist.ReduceOp.MIN)
+        spread = max(spread, float((hi - lo).max()))
+    return spread
 
 
 def train(rank: int, run: DPRun, dev: torch.device) -> dict:
@@ -138,18 +202,28 @@ def train(rank: int, run: DPRun, dev: torch.device) -> dict:
     batches = [{k: torch.as_tensor(v, device=dev) for k, v in
                 local_rows(b, rank, w).items()} for b in run.batches()]
     init = run.initial_state(dev)["params"]
-    _, first = value_and_flat_grad(model, init, batches[0])
     out = {"rank": rank, "world": w, "device": str(dev),
            "device_name": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                            else "cpu"),
-           "transport": transport(None, first), "n_params": first.numel(),
-           "init_digest": digest(init.flat),
-           "exchange": exchange_check(first, run.algorithms),
-           "algorithms": {}}
+           "transport": transport(None, init.flat), "n_params": init.flat.numel(),
+           "init_digest": digest(init.flat), "algorithms": {}, "exchange": {}}
+    want = p0 = None
+    if run.reference is not None:  # the init on the host, off the rank's card share
+        want = torch.load(run.reference, mmap=True, weights_only=True)
+        p0 = init.flat.cpu()
+    if run.check_exchange:
+        first = value_and_flat_grad(model, init, batches[0])[1]
+        del init
+        out["exchange"] = exchange_check(first, run.algorithms)
+        del first
+    else:
+        del init
     for alg in run.algorithms:
         state = run.initial_state(dev)
+        exchange_ms = []
         step = make_train_step(model, sgd(), grad_exchange=alg,
-                               microbatches=run.microbatches, device=dev)
+                               microbatches=run.microbatches, device=dev,
+                               exchange_ms=exchange_ms)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launch_counts()
@@ -159,13 +233,23 @@ def train(rank: int, run: DPRun, dev: torch.device) -> dict:
             state, loss = step(state, batch, run.lr)
             losses.append(float(loss))
             step_ms.append(1e3 * (_sync(dev) - t0))
-        out["algorithms"][alg] = {
-            "losses": losses, "step_ms": step_ms,
+        flat = state["params"].flat
+        result = out["algorithms"][alg] = {
+            "losses": losses, "step_ms": step_ms, "exchange_ms": exchange_ms,
             "launches": ops.launch_counts(),
-            "params": state["params"].flat.cpu(),
-            "digest": digest(state["params"].flat),
+            "digest": digest(flat),
             "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                                   if dev.type == "cuda" else None)}
+        if want is None:
+            result["params"] = flat.cpu()
+        else:
+            result["update_rel_err_vs_reference"] = update_rel_err(flat, p0, want)
+            if alg == "psum":  # the spread, when the ranks' bits differ
+                digests = [None] * w
+                dist.all_gather_object(digests, result["digest"])
+                result["rank_spread"] = (0.0 if len(set(digests)) == 1
+                                         else rank_spread(flat))
+        del state, step, flat
     return out
 
 
@@ -227,13 +311,43 @@ def run(spec: DPRun) -> list[dict]:
                  spec.timeout_s * (len(spec.algorithms) + 2))
 
 
+def one_process_updates(spec: DPRun, into: Path) -> tuple[str, list[Path], float]:
+    """The one-process train step at the global batch of ``spec`` (same
+    init, batches and LR) on ``spec.device``: the digest of the init, the
+    update p_t - p0 after each step t, saved as ``into/update<t>.pt`` (flat
+    f32 CPU tensors, each a ``reference`` for a run of t steps; at full
+    width each is 3.1 GB, so none stays in memory), and the largest
+    element of the last update."""
+    dev = resolve_device(spec.device)
+    state = spec.initial_state(dev)
+    p0 = state["params"].flat.clone()
+    step = make_train_step(spec.model(), sgd(), device=dev)
+    paths = []
+    for t, batch in enumerate(spec.batches(), 1):
+        state, _ = step(state, batch, spec.lr)
+        update = state["params"].flat - p0
+        paths.append(into / f"update{t}.pt")
+        torch.save(update.cpu(), paths[-1])
+    scale = float(update.abs().max())
+    init_digest = digest(p0)
+    del state, step, p0, update
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return init_digest, paths, scale
+
+
 def bytes_sent_per_rank(algorithm: str, n: int, w: int) -> float | None:
     """Bytes each rank sends in one all-reduce of n f32 values, from the
     schedule simulators' counters (None for ``dist.all_reduce``, whose
-    schedule is the backend's)."""
+    schedule is the backend's). Where w divides n the counters scale with
+    the segment's bytes, so the vector is simulated as w elements of n / w
+    values each: a full-width LM's gradient would need w x n f64 values in
+    the simulator."""
     sim = schedules.ALGORITHMS.get(algorithm)
     if sim is None:
         return None
+    if n % w == 0:
+        return sim(np.zeros((w, w), np.float32), itemsize=4 * n // w)[1].bytes_sent
     return sim(np.zeros((w, n), np.float32), itemsize=4)[1].bytes_sent
 
 
@@ -241,38 +355,59 @@ def summary(spec: DPRun, ranks: list[dict]) -> dict:
     """Per algorithm: rank 0's losses, the median step and exchange times
     over all ranks' steps, bytes sent per rank and step, whether every
     rank's final parameters carry rank 0's bits, launches per rank and
-    step, and the largest difference from ``dist.all_reduce``."""
+    step, and the largest first-step difference from ``dist.all_reduce``
+    (None when the exchange was not checked)."""
     r0 = ranks[0]
     out = {"world": spec.world, "config": spec.cfg.name,
+           "n_params": r0["n_params"],
            "global_batch": spec.m_per_worker * spec.world, "lr": spec.lr,
            "transport": r0["transport"], "device": r0["device_name"],
            "same_init": len({r["init_digest"] for r in ranks}) == 1,
            "algorithms": {}}
     for alg in spec.algorithms:
         runs = [r["algorithms"][alg] for r in ranks]
+        exchanged = [r["exchange"][alg] for r in ranks if alg in r["exchange"]]
         out["algorithms"][alg] = {
             "losses_rank0": runs[0]["losses"],
             "step_ms_median": statistics.median(
                 t for x in runs for t in x["step_ms"]),
             "exchange_ms_median": statistics.median(
-                t for r in ranks for t in r["exchange"][alg]["times_ms"]),
+                t for x in runs for t in x["exchange_ms"]),
             "bytes_sent_per_rank": bytes_sent_per_rank(alg, r0["n_params"], spec.world),
             "ranks_bit_identical": len({x["digest"] for x in runs}) == 1,
             "launches_per_rank_step": [
                 {k: v / spec.steps for k, v in x["launches"].items()} for x in runs],
-            "max_rel_err_vs_psum": max(r["exchange"][alg]["max_rel_err_vs_psum"]
-                                       for r in ranks),
+            "max_rel_err_vs_psum": max((e["max_rel_err_vs_psum"] for e in exchanged),
+                                       default=None),
             "peak_memory_bytes": [x["peak_memory_bytes"] for x in runs]}
+        if spec.reference is not None:
+            out["algorithms"][alg]["update_rel_err_vs_reference"] = [
+                x["update_rel_err_vs_reference"] for x in runs]
+            if alg == "psum":
+                out["algorithms"][alg]["rank_spread"] = runs[0]["rank_spread"]
     return out
+
+
+# examples/explicit_allreduce.py's run: 8 host devices, 8 sequences of 64
+# tokens each, SGD at a constant LR of 0.05, 10 steps
+EXAMPLE = dict(world=8, m_per_worker=8, seq=64, lr=0.05, steps=10)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-3b",
+                    help="an LM of the registry (at smoke size) or resnet-110")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cpu = resolve_device(args.device).type == "cpu"
-    spec = DPRun(cfg=resnet110.smoke_config() if cpu else resnet110.CONFIG,
-                 m_per_worker=16 if cpu else 128, device=args.device)
+    if args.arch == "resnet-110":
+        spec = DPRun(cfg=resnet110.smoke_config() if cpu else resnet110.CONFIG,
+                     m_per_worker=16 if cpu else 128, device=args.device)
+    else:
+        e = EXAMPLE
+        spec = DPRun(cfg=get_smoke_config(args.arch), world=e["world"],
+                     steps=e["steps"], m_per_worker=e["m_per_worker"], seq=e["seq"],
+                     base_lr_1w=e["lr"] / e["world"], device=args.device)
     t0 = time.perf_counter()
     out = summary(spec, run(spec))
     print(f"{spec.world} ranks, {spec.cfg.name}, transport {out['transport']} "

@@ -10,8 +10,10 @@ tokens: like the reference's loop, this one passes no patch embeddings),
 the SSM (mamba2-780m, whose decode carries conv windows and an f32 SSM
 state in place of a KV cache) or the hybrid (jamba-v0.1-52b: its 103 GB
 of bf16 weights need more than one 80 GB card at full depth; ``--smoke``
-runs it anywhere). Runs on the GPU; ``--device cpu`` runs the plain
-versions on the CPU.
+runs it anywhere) or whisper-base (its decoder over a cache whose encoder
+output ``enc`` stays at zeros: like the reference's loop, this one passes
+no audio frames; every step's cross-attention reads all 1,500 frames).
+Runs on the GPU; ``--device cpu`` runs the plain versions on the CPU.
 """
 from __future__ import annotations
 

@@ -7,32 +7,63 @@ store. The parameters are f32 masters in one flat buffer; the forward
 runs in bf16, through the ``rmsnorm`` kernel (and ``swa_attention``
 where the model has attention) on the GPU. ``--workers`` sets the data-parallel
 worker count the scheduler allocated: per-worker batch m stays fixed,
-global batch = m * workers on one device, LR linearly rescaled (paper
-eq. 7).
+global batch = m * workers, LR linearly rescaled (paper eq. 7).
+
+With ``--grad-exchange ring|doubling_halving`` and a process group of more
+than one rank, each rank trains on its rows of the global batch and the
+gradients are all-reduced by the paper's algorithm before the update (the
+reference's ``shard_map`` path); otherwise every step is the plain one
+over the whole global batch (the reference's path on one device).
+``--workers`` stays the scheduler's allocation, independent of the number
+of ranks. The ranks join the group before ``main`` is called (as
+``launch.explicit_allreduce.spawn`` starts them) or, when ``WORLD_SIZE``
+is set (torchrun), here through ``env://`` over gloo. Rank 0 alone logs
+and saves the checkpoint; every rank restores.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
       --smoke --steps 100 --workers 4
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch qwen2.5-3b --smoke --workers 4 --grad-exchange ring --device cpu
 
 Runs on the GPU; ``--device cpu`` runs the plain versions on the CPU.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.synthetic import TokenStream
 from repro_torch.engine.steps import (init_train_state, make_train_step,
                                       resolve_device)
+from repro_torch.launch.mesh import init_data_group, local_rows
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw, rescale_lr, warmup_cosine
 
 
+def _join(device) -> tuple[torch.device, bool]:
+    """The step's device, and whether this call started the process group:
+    it does when none is initialised and ``WORLD_SIZE`` (torchrun's
+    environment) names more than one rank, on the card ``LOCAL_RANK``
+    picks."""
+    dev = resolve_device(device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if dist.is_initialized() or world <= 1:
+        return dev, False
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))
+                           % torch.cuda.device_count())
+    return init_data_group(int(os.environ["RANK"]), world, "env://", "gloo", dev), True
+
+
 def main(argv=None):
-    """-> (first_loss, last_loss) of the run."""
+    """-> (first_loss, last_loss) of the run: this rank's local losses when
+    the gradients are exchanged."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -49,11 +80,22 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.grad_exchange is not None:
-        ap.error(f"--grad-exchange {args.grad_exchange}: this launcher trains "
-                 "in one process; the paper's exchange between processes runs "
-                 "in repro_torch.launch.explicit_allreduce")
-    dev = resolve_device(args.device)
+    dev, own_group = _join(args.device)
+    try:
+        return _train(args, dev)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(args, dev: torch.device):
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    exchange = args.grad_exchange if world > 1 else None
+
+    def log(*a, **k):
+        if rank == 0:
+            print(*a, **k)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, torch.float32)  # f32 masters, bf16 compute
@@ -63,7 +105,7 @@ def main(argv=None):
     base_lr = rescale_lr(args.lr, args.workers, 1)
     sched = warmup_cosine(base_lr, warmup=min(20, args.steps // 5 + 1),
                           total=args.steps)
-    step_fn = make_train_step(model, opt, device=dev)
+    step_fn = make_train_step(model, opt, grad_exchange=exchange, device=dev)
 
     state = init_train_state(model, opt, device=dev)
     store = CheckpointStore(args.ckpt_dir) if args.ckpt_dir else None
@@ -71,23 +113,31 @@ def main(argv=None):
     if store and args.resume and store.latest_step() is not None:
         state, meta, secs = store.restore(state)
         step0 = store.latest_step()
-        print(f"restored step {step0} in {secs:.2f}s (meta={meta})")
+        log(f"restored step {step0} in {secs:.2f}s (meta={meta})")
 
     t0 = time.perf_counter()
     first_loss = None
     for i in range(step0, step0 + args.steps):
-        state, loss = step_fn(state, data.batch(i, global_batch), sched(i))
+        batch = data.batch(i, global_batch)
+        if exchange:
+            batch = local_rows(batch, rank, world)
+        state, loss = step_fn(state, batch, sched(i))
         if first_loss is None:
             first_loss = float(loss)
         if i % args.log_every == 0 or i == step0 + args.steps - 1:
             dt = time.perf_counter() - t0
             tok_s = (i - step0 + 1) * global_batch * args.seq / max(dt, 1e-9)
-            print(f"step {i:5d} loss {float(loss):.4f} lr {sched(i):.2e} "
-                  f"tok/s {tok_s:,.0f}", flush=True)
+            log(f"step {i:5d} loss {float(loss):.4f} lr {sched(i):.2e} "
+                f"tok/s {tok_s:,.0f}", flush=True)
     if store:
-        secs = store.save(step0 + args.steps, state,
-                          meta={"workers": args.workers})
-        print(f"checkpointed step {step0 + args.steps} in {secs:.2f}s")
+        if world > 1:
+            dist.barrier()
+        if rank == 0:
+            secs = store.save(step0 + args.steps, state,
+                              meta={"workers": args.workers})
+            log(f"checkpointed step {step0 + args.steps} in {secs:.2f}s")
+        if world > 1:  # no rank returns before the checkpoint is written
+            dist.barrier()
     return first_loss, float(loss)
 
 

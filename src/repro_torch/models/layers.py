@@ -102,26 +102,23 @@ def repeat_kv(k, n_rep: int):
 def chunked_attention(q, k, v, *, causal: bool = True,
                       window: int | None = None, q_offset: int = 0):
     """softmax(QK^T/sqrt(d)) V over the whole sequence, through
-    ``ops.swa_attention`` (flash-style: never an [S, S] tensor on the GPU).
+    ``ops.swa_attention`` (flash-style: never an [Sq, Sk] tensor on the GPU).
 
-    q, k, v: [B, S, H, D] (KV already GQA-repeated). Only self-attention
-    from position 0 is ported: ``sq == sk`` and ``q_offset == 0``.
-    ``window``: key j visible to query i iff i - window < j <= i.
-    Unlike the reference's XLA path, the softmax weights are not rounded
-    to bf16 before the product with V (the TPU kernel does not round them
-    either); the difference is within bf16 tolerance.
+    q: [B, Sq, H, D]; k, v: [B, Sk, H, D] (KV already GQA-repeated; Sk may
+    differ from Sq, as in cross-attention). ``q_offset``: the position of
+    q[0] (prefill continuation, decode). Query i sits at p = q_offset + i;
+    key j is visible to it iff (not causal or j <= p) and (no window or
+    j > p - window). Unlike the reference's XLA path, the softmax weights
+    are not rounded to bf16 before the product with V (the TPU kernel does
+    not round them either); the difference is within bf16 tolerance.
     """
     b, sq, h, d = q.shape
-    if k.shape[1] != sq or q_offset != 0:
-        raise NotImplementedError(
-            "chunked_attention: only sq == sk and q_offset == 0 are ported "
-            "(cross-attention waits for the whisper slice, see ROADMAP.md)")
 
     def to_bh(t):  # [B, S, H, D] -> [B*H, S, D]
-        return t.permute(0, 2, 1, 3).reshape(b * h, sq, d)
+        return t.permute(0, 2, 1, 3).reshape(b * h, t.shape[1], d)
 
     out = ops.swa_attention(to_bh(q), to_bh(k), to_bh(v), causal=causal,
-                            window=window)
+                            window=window, q_offset=q_offset)
     return out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
 
 
@@ -155,20 +152,36 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int | None = None,
 
 
 # ---------------------------------------------------------------- mlps -----
+def _gelu(t):  # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(t, approximate="tanh")
+
+
 def mlp(cfg, p, x):
-    """Gated MLP (silu or geglu) from a layer param dict."""
-    if cfg.activation == "silu":
-        act = F.silu
-    elif cfg.activation == "geglu":
-        def act(t):  # jax.nn.gelu defaults to the tanh approximation
-            return F.gelu(t, approximate="tanh")
-    else:
-        raise NotImplementedError(
-            f"activation {cfg.activation!r} comes with the whisper slice "
-            "(see ROADMAP.md)")
-    g = act(torch.einsum("bsd,df->bsf", x, p["wi_gate"].to(x.dtype)))
-    u = torch.einsum("bsd,df->bsf", x, p["wi_up"].to(x.dtype))
-    return torch.einsum("bsf,fd->bsd", g * u, p["wo"].to(x.dtype))
+    """Gated (silu, geglu) or plain (gelu, with biases) MLP from a layer
+    param dict."""
+    dt = x.dtype
+    if cfg.activation in ("silu", "geglu"):
+        act = F.silu if cfg.activation == "silu" else _gelu
+        g = act(torch.einsum("bsd,df->bsf", x, p["wi_gate"].to(dt)))
+        u = torch.einsum("bsd,df->bsf", x, p["wi_up"].to(dt))
+        return torch.einsum("bsf,fd->bsd", g * u, p["wo"].to(dt))
+    if cfg.activation != "gelu":
+        raise ValueError(f"unknown activation {cfg.activation!r}")
+    h = _gelu(torch.einsum("bsd,df->bsf", x, p["wi"].to(dt)) + p["wi_bias"].to(dt))
+    return torch.einsum("bsf,fd->bsd", h, p["wo"].to(dt)) + p["wo_bias"].to(dt)
+
+
+# ------------------------------------------------------------ positions ----
+def sinusoidal(positions, d_model: int):
+    """positions [B, S] -> [B, S, D] f32: the classic transformer sinusoid,
+    sines then cosines of ``position * 10000^(-i / max(1, half - 1))``
+    (the reference's divisor), in the reference's order of f32 ops."""
+    half = d_model // 2
+    log_base = torch.log(torch.tensor(10000.0, device=positions.device))
+    i = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freq = torch.exp(-log_base * i / max(1, half - 1))
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ----------------------------------------------------------- embeddings ----

@@ -1,8 +1,8 @@
 """Model factory: config -> model object (torch twin of ``repro.models.registry``).
 
-The decoder-only transformer family (dense, MoE and the VLM backbone), the
-SSM (Mamba-2), the hybrid (Jamba) and the ResNet are ported; the audio
-family (whisper) comes in a later slice (see ROADMAP.md).
+Every family of the reference builds: the decoder-only transformers
+(dense, MoE and the VLM backbone), the SSM (Mamba-2), the hybrid (Jamba),
+the audio encoder-decoder (whisper) and the ResNet.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ from repro_torch.models.hybrid import JambaModel
 from repro_torch.models.mamba2 import Mamba2Model
 from repro_torch.models.resnet import ResNetModel
 from repro_torch.models.transformer import TransformerModel
+from repro_torch.models.whisper import WhisperModel
 
 
 def build_model(cfg: ModelConfig | ResNetConfig,
@@ -28,9 +29,7 @@ def build_model(cfg: ModelConfig | ResNetConfig,
     if cfg.family == "hybrid":
         return JambaModel(cfg, dtype)
     if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the audio family (whisper) is not ported yet "
-            "(see ROADMAP.md)")
+        return WhisperModel(cfg, dtype)
     return TransformerModel(cfg, dtype)
 
 

@@ -52,10 +52,17 @@ def attn_specs(cfg: ModelConfig, n: int, dtype: torch.dtype) -> dict:
 
 
 def mlp_specs(cfg: ModelConfig, n: int, dtype: torch.dtype) -> dict:
+    """Gated MLP weights (silu, geglu), or the plain gelu MLP's with its
+    biases; all are cast to the activation dtype at use."""
     Lx, D, F = n, cfg.d_model, cfg.d_ff
-    return {"wi_gate": TS((Lx, D, F), ("layers", "embed", "mlp"), dtype),
-            "wi_up": TS((Lx, D, F), ("layers", "embed", "mlp"), dtype),
-            "wo": TS((Lx, F, D), ("layers", "mlp", "embed"), dtype)}
+    if cfg.activation in ("silu", "geglu"):
+        return {"wi_gate": TS((Lx, D, F), ("layers", "embed", "mlp"), dtype),
+                "wi_up": TS((Lx, D, F), ("layers", "embed", "mlp"), dtype),
+                "wo": TS((Lx, F, D), ("layers", "mlp", "embed"), dtype)}
+    return {"wi": TS((Lx, D, F), ("layers", "embed", "mlp"), dtype),
+            "wi_bias": TS((Lx, F), ("layers", "mlp"), dtype, init="zeros"),
+            "wo": TS((Lx, F, D), ("layers", "mlp", "embed"), dtype),
+            "wo_bias": TS((Lx, D), ("layers", "embed"), dtype, init="zeros")}
 
 
 @functools.lru_cache(maxsize=16)
@@ -69,21 +76,24 @@ def _head_map(n_heads: int, n_padded: int, n_kv_heads: int,
 
 
 def attention(cfg: ModelConfig, p, x, positions, sh, *,
-              window: int | None, cache=None, pos=None):
-    """Self-attention sub-layer.
+              window: int | None, cache=None, pos=None, memory=None,
+              causal: bool = True):
+    """Attention sub-layer: self-attention, or cross-attention over
+    ``memory`` [B, Sm, D] (keys and values from it, no RoPE, no cache).
 
     cache: (k_cache, v_cache) [B, S, Hkv, Dh] for decode, written in place
     at slot ``pos`` [B] (the reference returns new caches instead).
     """
     dt = x.dtype
+    kv_src = x if memory is None else memory
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(dt))
+    k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"].to(dt))
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
         v = v + p["bv"].to(dt)
-    if cfg.rope_theta:
+    if cfg.rope_theta and memory is None:
         sections = _mrope_sections(cfg)
         q = L.apply_rope(q, positions, cfg.rope_theta, sections)
         k = L.apply_rope(k, positions, cfg.rope_theta, sections)
@@ -104,7 +114,7 @@ def attention(cfg: ModelConfig, p, x, positions, sh, *,
     else:
         attn = L.chunked_attention(q, k.index_select(2, head_map),
                                    v.index_select(2, head_map),
-                                   causal=True, window=window)
+                                   causal=causal, window=window)
     if H_pad != H_real:
         mask = (torch.arange(H_pad, device=x.device) < H_real).to(dt)
         attn = attn * mask[None, None, :, None]

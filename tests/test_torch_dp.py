@@ -16,6 +16,12 @@ init carried across by ``repro_torch.bridge``.
   against the reference's ``make_train_step(microbatches=4)`` and against
   the port's unsplit step, to the same 1e-5 (reached: below 7e-7; mirrors
   ``tests/test_system.py::test_microbatch_equivalence``).
+* Against a reference file (the route of a full-width run, where no rank
+  ships its parameters): ``one_process_updates`` saves the one-process
+  update, which agrees with the reference's ring update to the same 1e-5;
+  2 ranks under psum and ring, with no first-step check, measure their
+  own updates against it (relative L2) and psum's spread across them,
+  each within 1e-5.
 """
 import pytest
 
@@ -114,6 +120,14 @@ def runs(tmp_path_factory):
         run = dataclasses.replace(RUN, init=init)
         mb2 = dataclasses.replace(run, algorithms=("ring",), microbatches=2)
         port, port_mb2 = ea.run(run), ea.run(mb2)
+        ref_dir = tmp_path_factory.mktemp("dp_reference")
+        digest0, paths, scale = ea.one_process_updates(run, ref_dir)
+        against = dataclasses.replace(run, world=2, m_per_worker=2 * run.m_per_worker,
+                                      base_lr_1w=2 * run.base_lr_1w,  # the same LR
+                                      algorithms=("psum", "ring"), check_exchange=False,
+                                      reference=str(paths[-1]))
+        reference = {"run": against, "ranks": ea.run(against), "digest": digest0,
+                     "paths": paths, "scale": scale}
         _, stderr = proc.communicate(timeout=240)
     finally:
         proc.kill()
@@ -122,7 +136,8 @@ def runs(tmp_path_factory):
         jax_out = {k: z[k] for k in z.files}
     assert all(np.array_equal(jax_out[f"init/{k}"], np.asarray(v))
                for k, v in _flatten(jparams).items())
-    return {"jax": jax_out, "init": init, "run": run, "port": port, "port_mb2": port_mb2}
+    return {"jax": jax_out, "init": init, "run": run, "port": port, "port_mb2": port_mb2,
+            "reference": reference}
 
 
 def updates(ranks, alg, init):
@@ -160,6 +175,7 @@ def test_dp_first_step_exchange_and_no_launches_on_the_cpu(runs, alg):
         assert r["algorithms"][alg]["launches"] == {
             "rmsnorm": 0, "swa_attention": 0, "fused_sgd_update": 0}
         assert len(r["algorithms"][alg]["losses"]) == RUN.steps
+        assert len(r["algorithms"][alg]["exchange_ms"]) == RUN.steps
 
 
 def test_dp_microbatches_compose_with_ring(runs):
@@ -188,3 +204,22 @@ def test_microbatches_match_reference_and_unsplit_step(runs):
     np.testing.assert_allclose(got[4][1], runs["jax"]["losses/mb4"], rtol=TOL)
     assert rel(got[4][0], got[1][0]) <= TOL
     np.testing.assert_allclose(got[4][1], got[1][1], rtol=TOL)
+
+
+def test_dp_ranks_measure_their_update_against_a_reference_file(runs):
+    ref = runs["reference"]
+    assert ref["run"].lr == RUN.lr
+    want = torch.load(ref["paths"][-1]).numpy()
+    assert len(ref["paths"]) == RUN.steps
+    assert rel(want, runs["jax"]["update/ring"]) <= TOL
+    assert ref["scale"] == float(np.abs(want).max())
+    summary = ea.summary(ref["run"], ref["ranks"])
+    assert summary["same_init"] and ref["ranks"][0]["init_digest"] == ref["digest"]
+    for alg, a in summary["algorithms"].items():
+        assert max(a["update_rel_err_vs_reference"]) <= TOL, alg
+        assert a["max_rel_err_vs_psum"] is None and a["exchange_ms_median"] >= 0
+    assert summary["algorithms"]["psum"]["rank_spread"] / ref["scale"] <= TOL
+    assert summary["algorithms"]["ring"]["ranks_bit_identical"]
+    for r in ref["ranks"]:
+        assert r["exchange"] == {}
+        assert all("params" not in a for a in r["algorithms"].values())

@@ -56,7 +56,8 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.launch.mesh", "repro_torch.launch.explicit_allreduce",
             "repro_torch.launch.train", "repro_torch.models.moe",
             "repro_torch.configs.qwen2_vl_2b", "repro_torch.configs.qwen3_moe_30b_a3b",
-            "repro_torch.configs.dbrx_132b", "repro_torch.configs.qwen25_14b"} <= set(names)
+            "repro_torch.configs.dbrx_132b", "repro_torch.configs.qwen25_14b",
+            "repro_torch.models.whisper", "repro_torch.configs.whisper_base"} <= set(names)
     loaded = _loaded_after("\n".join(f"import {n}" for n in names))
     assert "repro_torch" in loaded and "torch" in loaded
     assert _foreign(loaded) == []
@@ -68,8 +69,19 @@ def test_chip_smoke_imports_without_jax_or_repro():
         f"spec = importlib.util.spec_from_file_location('chip_smoke', {str(ROOT / 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))")
     assert {"repro_torch.launch.serve", "repro_torch.core.elastic",
-            "repro_torch.launch.explicit_allreduce"} <= set(loaded)
+            "repro_torch.launch.explicit_allreduce",
+            "repro_torch.models.whisper"} <= set(loaded)
     assert _foreign(loaded) == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.train",
+                                    "repro_torch.launch.explicit_allreduce",
+                                    "repro_torch.models.whisper"])
+def test_changed_launchers_and_whisper_import_alone_without_jax_or_repro(module):
+    """Each on its own (the data-parallel launchers and the audio model),
+    in a fresh interpreter."""
+    loaded = _loaded_after(f"import {module}")
+    assert module in loaded and _foreign(loaded) == []
 
 
 def test_chip_smoke_fails_without_a_gpu():
@@ -240,6 +252,8 @@ def test_dp_entry_points_need_a_gpu_unless_asked_for_the_cpu(monkeypatch, tmp_pa
         ea.run(ea.DPRun())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ea.main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ea.main(["--arch", "resnet-110"])
     with pytest.raises(ValueError, match="nccl backend needs a CUDA device"):
         init_data_group(0, 1, rdzv, "nccl", device="cpu")
     with pytest.raises(ValueError, match="12 rows does not split over 5 ranks"):

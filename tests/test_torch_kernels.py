@@ -1,9 +1,12 @@
 """The port's kernels module against the JAX reference: the plain PyTorch
 versions (what the CPU path runs and what the CUDA kernels are held against)
 match ``repro.kernels.ref`` and the Pallas kernels in interpret mode, on the
-shape sweeps and tolerances of tests/test_kernels.py. The CUDA kernels
-themselves are checked against the plain versions by the ``cuda`` tests
-below, which run only on a machine with a GPU."""
+shape sweeps and tolerances of tests/test_kernels.py. Attention with
+queries and keys of different lengths (cross-attention) and queries at an
+offset, which the Pallas kernel does not take, is held to the reference's
+``chunked_attention`` (its XLA path) at the same tolerances: f32 2e-5, bf16
+2e-2. The CUDA kernels themselves are checked against the plain versions by
+the ``cuda`` tests below, which run only on a machine with a GPU."""
 import pytest
 
 pytest.importorskip("torch")  # the CI lane without torch skips the port
@@ -14,6 +17,7 @@ import numpy as np
 import torch
 from _hypothesis_compat import given, settings, strategies as st
 
+import repro.models.layers as JL
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import fused_update as sgd_kernel
@@ -52,9 +56,27 @@ RMS_CASES = [(4, 128, 512), (1, 7, 64), (300, 1024), (2, 2048),
 RMS_GROUPED_CASES = [(4, 1, 48, 64), (2, 9, 6, 16), (3, 5, 4, 100), (2, 3, 128, 64)]
 
 
-def _swa_inputs(bh, s, d, seed):
+# (bh, sq, sk, d, causal, window, q_offset): cross-attention and queries at
+# an offset (the kernel at these and whisper-base's shapes:
+# tests/test_torch_swa_cross.py, which the card's machine runs). whisper's decode step (one query row against its 1,500
+# frames, 23 key tiles of 64 and one of 28), a ragged cross block, Sq > Sk,
+# causal continuations at an offset with and without a window, and a
+# non-causal window.
+SWA_CROSS_CASES = [
+    (2, 1, 1500, 64, False, None, 0),
+    (2, 40, 1500, 64, False, None, 0),
+    (1, 130, 70, 32, False, None, 0),
+    (2, 20, 84, 64, True, None, 64),
+    (2, 20, 84, 64, True, 16, 64),
+    (1, 33, 50, 32, False, 24, 10),
+]
+
+
+def _swa_inputs(bh, s, d, seed, sk=None):
+    """q [bh, s, d] and k, v [bh, sk, d] (sk = s when None)."""
     rng = np.random.default_rng(seed)
-    return [rng.standard_normal((bh, s, d), dtype=np.float32) for _ in range(3)]
+    sk = s if sk is None else sk
+    return [rng.standard_normal((bh, n, d), dtype=np.float32) for n in (s, sk, sk)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -70,6 +92,75 @@ def test_swa_attention_sweep(bh, s, d, window, causal, dtype):
     tol = 2e-5 if dtype == "float32" else 2e-2
     for want in (want_ref, want_pallas):
         np.testing.assert_allclose(as_f32(got), as_f32(want), rtol=tol, atol=tol)
+
+
+def _to_bshd(x):  # [BH, S, D] -> [1, S, BH, D], chunked_attention's layout
+    return jnp.transpose(x, (1, 0, 2))[None]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bh,sq,sk,d,causal,window,q_offset", SWA_CROSS_CASES)
+def test_swa_attention_cross_matches_reference(bh, sq, sk, d, causal, window,
+                                               q_offset, dtype):
+    (jq, tq), (jk, tk), (jv, tv) = (both(a, dtype) for a in
+                                    _swa_inputs(bh, sq, d, sq + sk, sk))
+    got = ops.swa_attention(tq, tk, tv, causal=causal, window=window,
+                            q_offset=q_offset)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    want = JL.chunked_attention(_to_bshd(jq), _to_bshd(jk), _to_bshd(jv),
+                                causal=causal, window=window, q_offset=q_offset)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(as_f32(got), as_f32(want[0].transpose(1, 0, 2)),
+                               rtol=tol, atol=tol)
+
+
+def test_swa_attention_at_an_offset_is_the_tail_of_self_attention():
+    """Queries at q_offset against the keys from 0 give the last rows of the
+    self-attention over the whole sequence, bit for bit in f32."""
+    q, k, v = (torch.from_numpy(a) for a in _swa_inputs(2, 96, 32, 7))
+    whole = ops.swa_attention(q, k, v, window=40)
+    tail = ops.swa_attention(q[:, 60:], k, v, window=40, q_offset=60)
+    torch.testing.assert_close(tail, whole[:, 60:], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("q_shape,kv_shape,window,q_offset,match", [
+    ((2, 4, 32), (2, 6, 64), None, 0, r"\[BH, Sk, D\]"),   # head dims differ
+    ((2, 4, 32), (3, 6, 32), None, 0, r"\[BH, Sk, D\]"),   # BH differs
+    ((2, 4, 48), (2, 6, 48), None, 0, "head dim"),
+    ((2, 4, 32), (2, 6, 32), 0, 0, "window"),
+    ((2, 4, 32), (2, 6, 32), None, -1, "q_offset"),
+    ((2, 4, 32), (2, 0, 32), None, 0, "no key"),
+    ((2, 4, 32), (2, 6, 32), 2, 5, "no key"),             # the last row's band is past Sk
+])
+def test_swa_wrapper_checks_cross_attention_shapes(q_shape, kv_shape, window,
+                                                   q_offset, match):
+    """The kernel wrapper's shape checks: q [BH, Sq, D] and k, v
+    [BH, Sk, D], and every query row sees a key. They run before the
+    library loads, here on CPU tensors."""
+    q, kv = torch.zeros(q_shape), torch.zeros(kv_shape)
+    with pytest.raises(ValueError, match=match):
+        swa_kernel.check_shapes(q, kv, kv, window=window, q_offset=q_offset)
+    with pytest.raises(ValueError, match=r"\[BH, Sk, D\]"):
+        swa_kernel.check_shapes(q, kv, torch.zeros(2, 7, q_shape[-1]),
+                                window=None, q_offset=0)
+    ok_kv = torch.zeros(q_shape[0], 6, 32)
+    swa_kernel.check_shapes(torch.zeros(q_shape[0], 4, 32), ok_kv, ok_kv,
+                            window=3, q_offset=4)  # the last row sees key 5
+
+
+@pytest.mark.parametrize("sq,sk,q_offset", [(4, 6, 0), (4, 4, 2)])
+def test_swa_attention_gradient_refuses_cross_attention(sq, sk, q_offset):
+    """The backward formula has no Sq != Sk or offset case: a call that
+    wants a gradient raises, naming the ROADMAP item, and launches
+    nothing; without grad the same call runs."""
+    q = torch.zeros(2, sq, 32, requires_grad=True)
+    kv = torch.zeros(2, sk, 32)
+    before = ops.launch_counts()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ops.swa_attention(q, kv, kv, q_offset=q_offset)
+    assert ops.launch_counts() == before
+    with torch.no_grad():
+        assert ops.swa_attention(q, kv, kv, q_offset=q_offset).shape == q.shape
 
 
 def test_swa_window_blocks_are_skipped_semantically():

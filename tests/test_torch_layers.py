@@ -103,12 +103,38 @@ def test_chunked_attention(causal, window, n_rep, dtype):
     _close(got, want, TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sq,sk,causal,window,q_offset", [
+    (1, 40, False, None, 0), (9, 23, False, None, 0), (7, 30, True, None, 23),
+    (7, 30, True, 5, 23), (12, 20, False, 10, 3)])
+def test_chunked_attention_cross(sq, sk, causal, window, q_offset, dtype):
+    """Cross-attention (Sk != Sq) and queries at an offset, [B, S, H, D]
+    with GQA-repeated KV, against the reference's chunked attention."""
+    rng = np.random.default_rng(5)
+    b, hkv, n_rep, d = 2, 2, 2, 32
+    jq, tq = both(_normal(rng, b, sq, hkv * n_rep, d), dtype)
+    jk, tk = both(_normal(rng, b, sk, hkv, d), dtype)
+    jv, tv = both(_normal(rng, b, sk, hkv, d), dtype)
+    got = TL.chunked_attention(tq, TL.repeat_kv(tk, n_rep), TL.repeat_kv(tv, n_rep),
+                               causal=causal, window=window, q_offset=q_offset)
+    want = JL.chunked_attention(jq, JL.repeat_kv(jk, n_rep), JL.repeat_kv(jv, n_rep),
+                                causal=causal, window=window, q_chunk=4,
+                                q_offset=q_offset)
+    _close(got, want, TOL[dtype])
+
+
 def test_chunked_attention_refuses_cross_attention():
-    q = torch.zeros(1, 4, 2, 32)
-    with pytest.raises(NotImplementedError):
-        TL.chunked_attention(q, torch.zeros(1, 6, 2, 32), torch.zeros(1, 6, 2, 32))
-    with pytest.raises(NotImplementedError):
+    """Cross-attention (Sq != Sk) and queries at an offset run forward only:
+    the attention Function's backward formula has no such case, so a call
+    that wants a gradient raises (whisper training is a ROADMAP item)."""
+    q = torch.zeros(1, 4, 2, 32, requires_grad=True)
+    kv = torch.zeros(1, 6, 2, 32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TL.chunked_attention(q, kv, kv, causal=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TL.chunked_attention(q, q, q, q_offset=3)
+    with torch.no_grad():
+        assert TL.chunked_attention(q, kv, kv, causal=False).shape == q.shape
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -146,8 +172,8 @@ def test_mlp(arch, dtype):
 
 
 def test_mlp_refuses_unported_activation():
-    cfg = dataclasses.replace(get_smoke_config("qwen2.5-3b"), activation="gelu")
-    with pytest.raises(NotImplementedError):
+    cfg = dataclasses.replace(get_smoke_config("qwen2.5-3b"), activation="relu")
+    with pytest.raises(ValueError, match="relu"):
         TL.mlp(cfg, {}, torch.zeros(1, 1, cfg.d_model))
 
 

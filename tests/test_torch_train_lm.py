@@ -312,9 +312,11 @@ def _both_models(arch, seed=0):
 # from its f32 gradient (flat relative L2; cpu_ssm_sensitivity.py), so a
 # port that rounds at other places cannot meet 0.05 against it. Their
 # loss and gradient are held in f32 (and their loss in bf16) in
-# test_torch_mamba2.py and test_torch_hybrid.py.
+# test_torch_mamba2.py and test_torch_hybrid.py. whisper-base (audio)
+# does not train in the port: its cross-attention has no backward yet
+# (test_torch_whisper.py holds its loss).
 TRANSFORMER_ARCHS = [a for a in ARCH_IDS
-                     if get_smoke_config(a).family not in ("ssm", "hybrid")]
+                     if get_smoke_config(a).family not in ("ssm", "hybrid", "audio")]
 
 
 @pytest.fixture(scope="module")
@@ -536,13 +538,6 @@ def test_train_cli_checkpoints_and_resumes(tmp_path, capsys):
     train.main(args + ["--resume"])
     assert "restored step 3" in capsys.readouterr().out
     assert CheckpointStore(str(tmp_path)).steps() == [3, 6]
-
-
-def test_train_cli_refuses_a_grad_exchange(capsys):
-    with pytest.raises(SystemExit):
-        train.main(["--arch", "gemma-2b", "--smoke", "--grad-exchange", "ring",
-                    "--device", "cpu"])
-    assert "repro_torch.launch.explicit_allreduce" in capsys.readouterr().err
 
 
 # --------------------------------------------------------- checkpoints ----

@@ -45,10 +45,10 @@ ARCHS = {"qwen2.5-3b": 24, "gemma-2b": 24, "h2o-danube-1.8b": 48,
          "qwen2-vl-2b": 24, "qwen3-moe-30b-a3b": 24, "dbrx-132b": 24,
          "qwen2.5-14b": 24}
 MOE_ARCHS = [a for a in ARCHS if jax_smoke_config(a).is_moe]
-# every arch the port builds: the transformers above, and the ssm and
-# hybrid families (held to the reference in test_torch_mamba2.py and
-# test_torch_hybrid.py)
-PORTED = [*ARCHS, "mamba2-780m", "jamba-v0.1-52b"]
+# every arch the port builds: the transformers above, the ssm and hybrid
+# families and the audio family (held to the reference in
+# test_torch_mamba2.py, test_torch_hybrid.py and test_torch_whisper.py)
+PORTED = [*ARCHS, "mamba2-780m", "jamba-v0.1-52b", "whisper-base"]
 F32_TOL = 1e-5
 
 
@@ -377,15 +377,29 @@ def test_configs_are_copies_of_the_reference(arch, smoke):
 
 
 def test_config_registry_lists_only_ported_archs():
+    """Every config of the reference is ported; an unknown one raises."""
+    from repro.configs import ARCH_IDS as JAX_ARCH_IDS
     from repro_torch.configs import ARCH_IDS, get_config
-    assert set(ARCH_IDS) == set(PORTED)
+    assert set(ARCH_IDS) == set(PORTED) == set(JAX_ARCH_IDS)
     with pytest.raises(KeyError):
-        get_config("whisper-base")
+        get_config("whisper-large")
     with pytest.raises(KeyError):
-        get_smoke_config("whisper-base")
+        get_smoke_config("whisper-large")
 
 
 @pytest.mark.parametrize("arch", ["whisper-base"])
 def test_unported_families_raise(arch):
+    """The audio family builds and serves, but does not train yet: the
+    gradient of its cross-attention (Sq != Sk) raises, naming the ROADMAP
+    item."""
+    from repro_torch.engine.steps import value_and_flat_grad
+    cfg = get_smoke_config(arch)
+    model = build_model(cfg, torch.float32)
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 4))),
+             "labels": torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 4))),
+             "frames": torch.zeros(1, cfg.n_frontend_tokens, cfg.d_model)}
+    assert torch.isfinite(model.loss(params, batch))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(jax_smoke_config(arch))
+        value_and_flat_grad(model, params, batch)
