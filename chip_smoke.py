@@ -94,7 +94,21 @@
    trained state's gradients, one train step's loss and gradient on the
    card against the same step in f32 on the CPU, an exact-resume check
    (5 + 5 steps against 10) and a profile of the train step;
-12. lm_train phase: the dense LM trainer on qwen2.5-3b at full width and
+12. sched phase: the paper's pipeline (tests/test_system.py's story) at
+   full size through the port's scheduler stack: a fresh ResNet-110
+   trainer takes 30 steps at w = 1, eq. 1 is fitted to its losses, the
+   per-worker forward and forward + backward of one 128-image batch are
+   timed on the card (Table 1's way, at depth 110), each w in 1, 2, 4, 8
+   gets that compute time plus the analytic communication term of eqs.
+   2-4 at the paper's 100 Gbit/s InfiniBand (no measurement of the
+   card's fabric), eq. 5 is fitted to those step times, the doubling
+   heuristic sizes the job on 8 GPUs, and the trainer restarts at that w
+   for 10 steps (one fused_sgd_update launch a step, 40 in all). Then
+   Table 3 through the port's simulator, at the paper's calibration and
+   with every job's step time from the card's profile, at the measured
+   stop + restart seconds and at the paper's 10 s; the table and
+   reference engines must agree bit for bit;
+13. lm_train phase: the dense LM trainer on qwen2.5-3b at full width and
    depth, f32 master parameters in one flat buffer (random, from a seeded
    CUDA generator), bf16 compute, the reference trainer's defaults
    (AdamW, TokenStream, 8 sequences of 128 tokens, base LR 3e-4) on a
@@ -109,7 +123,7 @@
    of 2 steps, the f32 lm_logits products timed alone, and an exact-resume
    check at the smoke config (5 + 5 steps through the CheckpointStore
    against 10);
-13. dp phase: data-parallel ResNet-110 at full size through
+14. dp phase: data-parallel ResNet-110 at full size through
    ``launch.explicit_allreduce``: 4 ranks, each its own process with its
    own CUDA context on the one card, 128 images each (global batch 512,
    LR 1.2e-3 by eq. 7), 5 steps under each of psum, ring and
@@ -123,9 +137,9 @@
    faulty exchanges built here (the sum not divided by w; the all-gather
    skipped) fail that gate; the first step's exchanged gradients agree
    with dist.all_reduce's;
-14. lm_dp phase: the LM job under the paper's exchange, qwen2.5-3b at full
+15. lm_dp phase: the LM job under the paper's exchange, qwen2.5-3b at full
    width cut to 2 layers (776 M f32 parameters), 4 ranks sharing the card
-   over gloo as in phase 13, 2 rows of 128 tokens each, momentum SGD at a
+   over gloo as in phase 14, 2 rows of 128 tokens each, momentum SGD at a
    constant LR of 0.05, 2 steps under each of psum, ring and
    doubling_halving: the same gates (each rank measures its update against
    the one-process step's, saved to a file, and psum's ranks their spread
@@ -135,10 +149,10 @@
    ring).
 
 Launch counts are set to 0 just before each serve, each counted prefill,
-the audio decode, the training runs and the LM step and training runs and
-read just after; each dp and lm_dp rank does the same around its steps
-under each algorithm. Any failed check raises, and the script exits
-non-zero.
+the audio decode, the training runs, the sched phase's two segments and
+the LM step and training runs and read just after; each dp and lm_dp rank
+does the same around its steps under each algorithm. Any failed check
+raises, and the script exits non-zero.
 The last two lines are the kernels' JSON line and the device line. It
 exits non-zero, printing no result, when there is no CUDA device.
 """
@@ -168,11 +182,19 @@ from repro_torch.checkpoint.store import CheckpointStore  # noqa: E402
 from repro_torch.configs import resnet110  # noqa: E402
 from repro_torch.configs.shapes import InputShape  # noqa: E402
 from repro_torch.core.elastic import ElasticTrainer  # noqa: E402
+from repro_torch.core import scheduler  # noqa: E402
+from repro_torch.core.convergence import fit_convergence  # noqa: E402
+from repro_torch.core.jobs import make_workload  # noqa: E402
+from repro_torch.core.resource_model import (fit_resource_model,  # noqa: E402
+                                             profile_to_speeds)
+from repro_torch.core.simulator import (TABLE3_STRATEGIES, run_table3,  # noqa: E402
+                                        simulate)
 from repro_torch.data.synthetic import CifarLike, TokenStream  # noqa: E402
 from repro_torch.engine.steps import (init_train_state, make_decode_step,  # noqa: E402
                                       make_prefill, make_train_step,
                                       value_and_flat_grad)
 from repro_torch.collectives import dist as cdist  # noqa: E402
+from repro_torch.collectives import cost  # noqa: E402
 from repro_torch.engine import steps as steps_module  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import fused_update as sgd_kernel  # noqa: E402
@@ -306,6 +328,27 @@ LM_KERNEL_GROUPS = {
     "reduce": ("reduce_kernel",),
     "elementwise": ("elementwise", "vectorized"),
 }
+# The paper's pipeline (sched phase): tests/test_system.py's story on
+# ResNet-110 at full size. SCHED_STEPS at w = 1, then at the allocation of
+# the doubling heuristic on SCHED_CAPACITY GPUs; the job needs
+# SCHED_EPOCHS in all (the paper's ResNet-110 runs, Table 2). The profile
+# is the median of SCHED_REPS timed calls on the host clock with the
+# device synced, after two untimed ones.
+SCHED_STEPS = (30, 10)
+SCHED_EPOCHS = 160.0
+SCHED_WS = (1, 2, 4, 8)
+SCHED_CAPACITY = 8
+SCHED_REPS = 7
+RESNET_PARAMS = 1_727_962
+# The paper's Table 1 (K40m, its cluster's measurements, not the card's):
+# for w workers, forward and backward ms of a 128-image batch, step ms and
+# images/s, as benchmarks/table1_profiling.py lists them.
+PAPER_TABLE1 = {1: (108.0, 236.5, 402.5, 318.0), 2: (110.2, 274.6, 427.2, 576.2),
+                4: (107.1, 290.1, 444.3, 1152.4), 8: (106.0, 307.4, 470.2, 2177.8)}
+PAPER_RESTART_SECONDS = 10.0  # the paper's stop + restart (§6)
+# run_table3's default traces: contention level -> (mean gap s, jobs)
+SCHED_CONTENTION = {"extreme": (250.0, 206), "moderate": (500.0, 114),
+                    "none": (1000.0, 44)}
 # Data parallel: the train phase's first segment (w = 4, 128 images per
 # worker, base LR 3e-4) as 4 processes, then 3 under ring. ResNet-110's
 # 1,727,962 parameters are a multiple of neither 3 nor 4, so both pad.
@@ -1971,6 +2014,174 @@ def train_phase() -> dict:
     return out
 
 
+# ------------------------------------------------------------- sched ----
+def sched_profile(model, params, data) -> dict:
+    """Table 1's profile on the card: the per-worker forward (the loss
+    without autograd) and forward + backward (``value_and_flat_grad``) of
+    one batch of m images, each the median of SCHED_REPS calls."""
+    m = TRAIN["m_per_worker"]
+    batch = {k: torch.as_tensor(v, device=DEVICE) for k, v in data.batch(0, m).items()}
+
+    def forward():
+        with torch.no_grad():
+            model.loss(params, batch)
+
+    out = {"images": m, "reps": SCHED_REPS}
+    for name, fn in (("fwd", forward),
+                     ("fwd_back", lambda: value_and_flat_grad(model, params, batch))):
+        for _ in range(2):
+            fn()
+        times = []
+        for _ in range(SCHED_REPS):
+            t0 = sync_time()
+            fn()
+            times.append(1e3 * (sync_time() - t0))
+        out[f"{name}_ms"] = float(np.median(times))
+        out[f"{name}_ms_all"] = times
+    out["T_fwd"] = out["fwd_ms"] / 1e3 / m  # seconds per example
+    out["T_back"] = max(out["fwd_back_ms"] - out["fwd_ms"], 1e-6) / 1e3 / m
+    return out
+
+
+def card_table3(T_fwd: float, T_back: float, restart_cost: float) -> dict:
+    """Table 3's poisson traces with every job's step time from the card's
+    profile (eqs. 2-4 at the paper's InfiniBand for the exchange): avg JCT
+    in hours per level and strategy, and each run's jobs completed."""
+    cluster = cost.ClusterModel(capacity=64, restart_cost=restart_cost)
+    jct, completed, traces = {}, {}, {}
+    for level, (gap, n_jobs) in SCHED_CONTENTION.items():
+        traces[level] = [dataclasses.replace(j, speed_mode="analytic", T_fwd=T_fwd,
+                                             T_back=T_back, T_const=0.0, T_per_worker=0.0)
+                         for j in make_workload("poisson", n_jobs, gap, 0)]
+        runs = {s: simulate(traces[level], strategy=s, cluster=cluster)
+                for s in TABLE3_STRATEGIES}
+        jct[level] = {s: r.avg_jct_hours for s, r in runs.items()}
+        completed[level] = {s: len(r.completion_times) == n_jobs and not r.rejected
+                            for s, r in runs.items()}
+    table, ref = (simulate(traces["none"], strategy="precompute", cluster=cluster,
+                           engine=engine) for engine in ("table", "reference"))
+    return {"restart_cost_s": restart_cost, "avg_jct_hours": jct, "completed": completed,
+            "precompute_over_best_fixed": over_best_fixed(jct),
+            "engines_bit_identical_none_precompute": {
+                j: t.hex() for j, t in table.completion_times.items()} == {
+                j: t.hex() for j, t in ref.completion_times.items()}}
+
+
+def over_best_fixed(jct: dict) -> dict:
+    """precompute's avg JCT over the best fixed_w strategy's, per level."""
+    return {level: row["precompute"] / min(v for s, v in row.items()
+                                           if s.startswith("fixed_"))
+            for level, row in jct.items()}
+
+
+def sched_phase(smi: str) -> dict:
+    """The paper's pipeline on the card (tests/test_system.py:26-62 at full
+    size): train, fit eq. 1, profile, fit eq. 5, let the doubling
+    heuristic size the job, restart it at that size; then Table 3."""
+    t_start = time.perf_counter()
+    model = build_model(resnet110.CONFIG)
+    data = CifarLike(size=TRAIN_DATASET, seed=0)
+    m = TRAIN["m_per_worker"]
+    n_params = pspec.n_params(model.param_specs())
+    n_bytes = 4 * n_params
+    steps_1, steps_2 = SCHED_STEPS
+    out = {"card": smi, "config": resnet110.CONFIG.name, "n_params": n_params,
+           "m_per_worker": m, "base_lr_1w": TRAIN["base_lr_1w"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        tr = trainer(model, CheckpointStore(tmp), data)
+        ops.reset_launch_counts()
+        rec = tr.train_segment(1, steps_1, resume=False, log_every=1)
+
+        # (2) eq. 1 on the logged losses
+        conv = fit_convergence(np.array([s for s, _, _ in rec.losses], float),
+                               np.array([l for _, _, l in rec.losses], float))
+        out["eq1"] = {**dataclasses.asdict(conv), "loss_at_100": float(conv.loss_at(100.0))}
+
+        # (3) Table 1's profile, and eq. 5 from its step times
+        prof = sched_profile(model, tr.fresh_state()["params"], data)
+        step_times, rows = {}, []
+        for w in SCHED_WS:
+            comm = cost.step_time(1, 0.0, 0.0, w, n_bytes, cost.INFINIBAND_100G)
+            step_times[w] = prof["fwd_back_ms"] / 1e3 + comm
+            paper = PAPER_TABLE1[w]
+            rows.append({"w": w, "compute_ms": prof["fwd_back_ms"],
+                         "comm_ms_analytic_ib100g": 1e3 * comm,
+                         "step_ms": 1e3 * step_times[w],
+                         "images_per_s": m * w / step_times[w],
+                         "paper_k40m": {"fwd_ms": paper[0], "back_ms": paper[1],
+                                        "step_ms": paper[2], "images_per_s": paper[3]}})
+        ws, speeds = profile_to_speeds(step_times, TRAIN_DATASET / m)
+        rm = fit_resource_model(ws, speeds, m=m, n=n_bytes)
+        fitted = rm.f(ws)
+        out["profile"] = prof
+        out["table1"] = rows
+        out["eq5"] = {"theta": rm.theta.tolist(), "ws": ws.tolist(),
+                      "speeds_epochs_per_s": speeds.tolist(),
+                      "fitted_epochs_per_s": fitted.tolist(),
+                      "rel_residual": ((fitted - speeds) / speeds).tolist()}
+
+        # (4) the doubling heuristic sizes the job; restart at its w
+        remaining = SCHED_EPOCHS - rec.epochs
+        alloc = scheduler.doubling_heuristic(
+            [(0, remaining, lambda w: float(rm.f(np.array([w]))[0]))],
+            capacity=SCHED_CAPACITY, max_w=SCHED_CAPACITY)
+        rec2 = tr.train_segment(alloc[0], steps_2, resume=True, log_every=1)
+        counts = ops.launch_counts()
+    out.update(remaining_epochs=remaining, alloc=alloc[0],
+               segments=[segment_stats(rec), segment_stats(rec2)], launches=counts,
+               save_seconds=rec.save_seconds, restore_seconds=rec2.restore_seconds,
+               stop_restart_seconds=rec.save_seconds + rec2.restore_seconds,
+               stop_restart_note="save and restore inside one process; no process "
+                                 "relaunch is in it (the paper's ~10 s is)")
+    out["seconds_card"] = time.perf_counter() - t_start
+
+    # (5) Table 3 through the port's simulator, on the host
+    t0 = time.perf_counter()
+    calibrated = run_table3()
+    out["table3"] = {
+        "paper_calibration": {"avg_jct_hours": calibrated,
+                              "precompute_over_best_fixed": over_best_fixed(calibrated)},
+        "card_profile": [card_table3(prof["T_fwd"], prof["T_back"], rc) for rc in
+                         (out["stop_restart_seconds"], PAPER_RESTART_SECONDS)]}
+    out["seconds_host_table3"] = time.perf_counter() - t0
+    out["seconds"] = time.perf_counter() - t_start
+
+    for r in rows:
+        k = r["paper_k40m"]
+        print(f"sched table1 w={r['w']}: compute {r['compute_ms']:.3f} ms (card, per worker, "
+              f"{m} images) + comm {r['comm_ms_analytic_ib100g']:.3f} ms (analytic, eqs. "
+              f"2-4 at the paper's 100 Gbit/s InfiniBand; not a measurement of the card) "
+              f"= {r['step_ms']:.3f} ms, {r['images_per_s']:.1f} images/s; the paper's "
+              f"K40m: {k['step_ms']} ms, {k['images_per_s']} images/s [{smi}]", flush=True)
+    for label, t3 in [("paper calibration", out["table3"]["paper_calibration"])] + [
+            (f"card profile, restart {t['restart_cost_s']:.3f} s", t)
+            for t in out["table3"]["card_profile"]]:
+        for level, row in t3["avg_jct_hours"].items():
+            print(f"sched table3 [{label}] {level:8s} " + " ".join(
+                f"{s} {v:.4f}" for s, v in row.items())
+                + f" | precompute / best fixed {t3['precompute_over_best_fixed'][level]:.4f}",
+                flush=True)
+    print(f"sched phase [{smi}]: " + json.dumps(out), flush=True)
+
+    check(n_params == RESNET_PARAMS, f"sched: {n_params} parameters")
+    check(math.isfinite(out["eq1"]["loss_at_100"]), f"eq. 1 fit: {out['eq1']}")
+    check(bool(np.all(np.diff(fitted) > 0)), f"eq. 5 f(w) increasing: {fitted}")
+    check(alloc[0] == SCHED_CAPACITY, f"doubling heuristic allocation {alloc}")
+    check(rec2.epochs > rec.epochs, "the restart continues the epochs")
+    check(rec2.losses[-1][2] < rec.losses[0][2],
+          f"last loss {rec2.losses[-1][2]} below the first {rec.losses[0][2]}")
+    check(rec2.losses[0][0] == steps_1, "the restart continues the steps")
+    check(counts == {"rmsnorm": 0, "swa_attention": 0,
+                     "fused_sgd_update": steps_1 + steps_2},
+          f"sched launches {counts}: one fused_sgd_update per step")
+    for t in out["table3"]["card_profile"]:
+        check(all(all(row.values()) for row in t["completed"].values()),
+              f"every job completes: {t['completed']}")
+        check(t["engines_bit_identical_none_precompute"],
+              "table and reference engines bit-identical under the card's profile")
+    return out
+
+
 # ------------------------------------------------------------ LM train --
 def lm_grad_errors(got: torch.Tensor, want: torch.Tensor, shapes: dict) -> dict:
     """Relative L2 error of a flat gradient against another, over the whole
@@ -2412,12 +2623,21 @@ def main() -> int:
     print(f"audio phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     trained = train_phase()
     print(f"train phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    sched = sched_phase(smi)
+    print(f"sched phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     torch.cuda.empty_cache()  # the LM trainer needs most of the card
     lm_trained = lm_train_phase(smi)
     print(f"lm_train phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     torch.cuda.empty_cache()  # the dp ranks share the card
     data_parallel = dp_phase(smi)
     print(f"dp phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    w4 = next(r for r in sched["table1"] if r["w"] == DP.world)
+    print(f"sched comm at w = {DP.world}: {w4['comm_ms_analytic_ib100g']:.3f} ms analytic "
+          "(eqs. 2-4 at the paper's 100 Gbit/s InfiniBand); the dp phase's exchange, "
+          "gloo over host loopback on one card (no fabric): " + ", ".join(
+              f"{alg} {a['exchange_ms_median']} ms" for alg, a in
+              data_parallel["runs"][f"w{DP.world}"]["algorithms"].items())
+          + f" [{smi}]", flush=True)
     lm_dp = lm_dp_phase(smi)
     print(f"lm_dp phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -2487,10 +2707,13 @@ def main() -> int:
         "replaces": tpu["fused_sgd_update"],
         "tpu_counterpart": f"{tpu['fused_sgd_update']} fused_sgd_update",
         "launches": (trained["launches"]["fused_sgd_update"]
+                     + sched["launches"]["fused_sgd_update"]
                      + data_parallel["launches"]["fused_sgd_update"]
                      + lm_dp["launches"]["fused_sgd_update"]),
         "launches_train": trained["launches"]["fused_sgd_update"],
         "launches_per_train_step": trained["launches"]["fused_sgd_update"] / sgd_steps,
+        "launches_sched": sched["launches"]["fused_sgd_update"],
+        "launches_per_sched_step": sched["launches"]["fused_sgd_update"] / sum(SCHED_STEPS),
         # all ranks, all algorithms
         "launches_dp": data_parallel["launches"]["fused_sgd_update"],
         "launches_per_dp_rank_step": data_parallel["launches"]["fused_sgd_update"] / sum(

@@ -57,7 +57,12 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.launch.train", "repro_torch.models.moe",
             "repro_torch.configs.qwen2_vl_2b", "repro_torch.configs.qwen3_moe_30b_a3b",
             "repro_torch.configs.dbrx_132b", "repro_torch.configs.qwen25_14b",
-            "repro_torch.models.whisper", "repro_torch.configs.whisper_base"} <= set(names)
+            "repro_torch.models.whisper", "repro_torch.configs.whisper_base",
+            "repro_torch.collectives.cost", "repro_torch.core.convergence",
+            "repro_torch.core.resource_model", "repro_torch.core.jobs",
+            "repro_torch.core.telemetry", "repro_torch.core.scheduler",
+            "repro_torch.core.faults", "repro_torch.core.placement",
+            "repro_torch.core._reference", "repro_torch.core.simulator"} <= set(names)
     loaded = _loaded_after("\n".join(f"import {n}" for n in names))
     assert "repro_torch" in loaded and "torch" in loaded
     assert _foreign(loaded) == []
@@ -70,7 +75,7 @@ def test_chip_smoke_imports_without_jax_or_repro():
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))")
     assert {"repro_torch.launch.serve", "repro_torch.core.elastic",
             "repro_torch.launch.explicit_allreduce",
-            "repro_torch.models.whisper"} <= set(loaded)
+            "repro_torch.models.whisper", "repro_torch.core.simulator"} <= set(loaded)
     assert _foreign(loaded) == []
 
 
