@@ -200,7 +200,9 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import fused_update as sgd_kernel  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
 from repro_torch.kernels import swa_attention as swa_kernel  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import explicit_allreduce as dp  # noqa: E402
+from repro_torch.launch import mesh as mesh_module  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import layers as mlayers  # noqa: E402
 from repro_torch.models import moe as moe_module  # noqa: E402
@@ -496,9 +498,11 @@ AUDIO_CONTROL_FAULTS = ("no_cache", "enc_zeroed")
 LM_DP_LAYERS = 2
 LM_DP_PARAMS = 776_485_888
 LM_DP = dp.DPRun(cfg=dataclasses.replace(get_config(ARCH), n_layers=LM_DP_LAYERS),
-                 world=4, steps=2, m_per_worker=2, seq=128, base_lr_1w=0.05 / 4,
+                 world=4, steps=1, m_per_worker=2, seq=128, base_lr_1w=0.05 / 4,
                  timeout_s=240)
-# Each rank's update p2 - p0 against the one-process step at the global
+# One timed step under each exchange (two until the shard phase came: the
+# smoke keeps under its time limit). Each rank's update p1 - p0 against
+# the one-process step at the global
 # batch of 8 x 128 tokens (same init, batches and LR): relative L2 error
 # below LM_DP_UPDATE_LIMIT. Set before the first run from this reasoning.
 # Per token the forward and backward are the same bf16 computations in
@@ -506,7 +510,7 @@ LM_DP = dp.DPRun(cfg=dataclasses.replace(get_config(ARCH), n_layers=LM_DP_LAYERS
 # weight gradients over 256 tokens, summed in f32 by the exchange, against
 # one bf16 rounding over 1,024 tokens) and cuBLAS's choice of algorithm at
 # 256 and 1,024 rows, about 2^-9 relative per rounded element. Carried
-# through 2 layers and 2 SGD steps that is 0.003-0.02 (on the CPU the
+# through 2 layers and 2 SGD steps (as it was set) that is 0.003-0.02 (on the CPU the
 # port's and the reference's bf16 gradients, which round at more places,
 # differ by 0.009-0.014 at 2 layers: tests/test_torch_train_lm.py). A
 # faulty exchange is far off: the sum not divided by w gives w - 1 = 3;
@@ -737,7 +741,9 @@ def bound(nbytes: int, n_ops: int, dtype) -> dict:
 
 def rms_timing(gen, rows, d, dtype) -> dict:
     elt = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 2 * rows * d * elt + 4 * d
+    n_ops, nbytes = ops.rmsnorm_cost((rows, d), (d,), elt)
+    nbytes = int(nbytes)
+
     def make():
         x, w = randn(gen, (rows, d), dtype), randn(gen, (d,), torch.float32, 0.1)
         return x, w, (1 + w).to(dtype)
@@ -749,7 +755,7 @@ def rms_timing(gen, rows, d, dtype) -> dict:
                   plain=lambda x, w, g: ref.rmsnorm_ref(x, w),
                   library=lambda x, w, g: F.rms_norm(x, (d,), g, 1e-6),
                   sets=sets),
-        **bound(nbytes, 5 * rows * d, dtype),  # square, sum, scale, gain, cast
+        **bound(nbytes, n_ops, dtype),  # square, sum, scale, gain, cast
     }
 
 
@@ -759,9 +765,9 @@ def rms_grouped_timing(gen, shape, dtype) -> dict:
     1 + w: F.rms_norm with a [G, D] weight would normalise over G x D, a
     different function."""
     elt = torch.tensor([], dtype=dtype).element_size()
-    d, groups = shape[-1], shape[-2]
-    rows = math.prod(shape[:-1])
-    nbytes = 2 * rows * d * elt + 4 * groups * d
+    d = shape[-1]
+    n_ops, nbytes = ops.rmsnorm_cost(shape, shape[-2:], elt)
+    nbytes = int(nbytes)
 
     def make():
         x, w = randn(gen, shape, dtype), randn(gen, shape[-2:], torch.float32, 0.1)
@@ -776,7 +782,7 @@ def rms_grouped_timing(gen, shape, dtype) -> dict:
                   plain=lambda x, w, g: ref.rmsnorm_ref(x, w),
                   library=lambda x, w, g: F.rms_norm(x, (d,), None, 1e-6) * g,
                   sets=sets),
-        **bound(nbytes, 5 * rows * d, dtype),  # square, sum, scale, gain, cast
+        **bound(nbytes, n_ops, dtype),  # square, sum, scale, gain, cast
     }
 
 
@@ -786,11 +792,12 @@ def swa_timing(gen, bh, s, d, dtype, heads: int, sk=None, causal: bool = True) -
     encoder, cross-attention and decode step)."""
     elt = torch.tensor([], dtype=dtype).element_size()
     sk = s if sk is None else sk
-    nbytes = 2 * bh * (s + sk) * d * elt  # q and o, k and v
+    # q and o, k and v; q.k and p.v over the (query, key) pairs this work
+    # needs: the causal band or all
+    n_ops, nbytes = ops.swa_attention_cost(bh, s, sk, d, elt, causal=causal, window=None)
+    nbytes = int(nbytes)
     sets = copies(lambda: (randn(gen, (bh, s, d), dtype),
                            *(randn(gen, (bh, sk, d), dtype) for _ in range(2))), nbytes)
-    # the (query, key) pairs this work needs: the causal band or all
-    pairs = s * (s + 1) // 2 if causal else s * sk
     b = bh // heads
 
     def library(q, k, v):
@@ -807,12 +814,13 @@ def swa_timing(gen, bh, s, d, dtype, heads: int, sk=None, causal: bool = True) -
         # SDPA's backend for this call: the kernels it launched
         "library_kernels": [n for n, e in out["library_device_events"].items()
                             if not e["annotation"]],
-        **bound(nbytes, 4 * d * pairs * bh, dtype),  # q.k and p.v, 2 each
+        **bound(nbytes, n_ops, dtype),  # q.k and p.v, 2 each
     }
 
 
 def sgd_timing(gen, n) -> dict:
-    nbytes = 5 * 4 * n  # read p, g, mu; write p, mu
+    n_ops, nbytes = ops.fused_sgd_update_cost(n)  # read p, g, mu; write p, mu
+    nbytes = int(nbytes)
 
     def make():
         p, g, mu = (randn(gen, (n,), torch.float32) for _ in range(3))
@@ -829,7 +837,7 @@ def sgd_timing(gen, n) -> dict:
         **timings(kernel=lambda p, g, mu, o: sgd_kernel.fused_sgd_update(p, g, mu, 0.1),
                   plain=lambda p, g, mu, o: ref.fused_sgd_update_ref(p, g, mu, 0.1),
                   library=lambda p, g, mu, o: o.step(), sets=sets),
-        **bound(nbytes, 6 * n, torch.float32),  # 3 multiplies, 3 adds
+        **bound(nbytes, n_ops, torch.float32),  # 3 multiplies, 3 adds
     }
 
 
@@ -2530,6 +2538,111 @@ def dp_gates(where: str, spec, summary: dict, ranks: list[dict],
                                   f"update gate: {errs}")
 
 
+# ------------------------------------------------------------- shard --
+# The dry-run of qwen2.5-3b at full width on a 1 x 1 ("data", "model") mesh,
+# with the H100 constants of launch.analysis: its roofline bound for the
+# prefill phase's [2, 1024] and the lm_train phase's 8 x 128 AdamW step,
+# each held to the device-busy time the profile and lm_train phases
+# measured in this run (a bound above the measurement means the count is
+# wrong). Then the [2, 1024] prefill through the DTensor route on the card,
+# in one spawned rank of a world-1 NCCL group: logits against the
+# unsharded prefill of the same weights under the bf16 contract, and
+# 2 x layers + 1 rmsnorm and layers swa_attention launches on the local
+# shards.
+SHARD_MESH = mesh_module.AbstractMesh((1, 1), ("data", "model"))
+SHARD_TIMEOUT_S = 300
+
+
+def shard_rank(rank: int, init_method: str, out_dir: str) -> None:
+    """The shard phase's rank: the prefill, unsharded and then through the
+    DTensor route, from the same seeded weights; saves the readings."""
+    mesh_module.init_data_group(rank, 1, init_method,
+                                "nccl" if DEVICE == "cuda" else "gloo", DEVICE, SHARD_TIMEOUT_S)
+    try:
+        cfg = get_config(ARCH)
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+        b, s = PREFILL_SHAPE
+        batch = {"tokens": torch.as_tensor(
+            TokenStream(cfg.vocab_size, s, seed=5).batch(0, b)["tokens"], device=DEVICE)}
+        window = decode_window(cfg, s)
+        one = make_prefill(model, window=window, device=DEVICE)(params, batch)
+        sh = mlayers.Sharder(mesh_module.device_mesh(SHARD_MESH))
+        prefill = make_prefill(model, sh, window=window, device=DEVICE)
+        sharded_params = steps_module.shard_tree(params, model.param_specs(), sh)
+        prefill(sharded_params, {k: v[:, :64] for k, v in batch.items()})  # warm-up
+        ops.reset_launch_counts()
+        t0 = sync_time()
+        logits = prefill(sharded_params, batch)
+        seconds = sync_time() - t0
+        counts = ops.launch_counts()
+        local = logits.to_local()
+        out = {"launches": counts, "seconds_prefill": seconds,
+               "logits_type": type(logits).__name__,
+               "placements": [str(p) for p in logits.placements],
+               "shape": list(local.shape), "finite": bool(torch.isfinite(local).all()),
+               "max_abs_diff_vs_unsharded": float((local - one).abs().max()),
+               "rel_err_vs_plain": rel_err(local, one),
+               "argmax_agree_vs_plain": float((local.argmax(-1) == one.argmax(-1))
+                                              .float().mean())}
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def shard_phase(smi: str, prefill_profile: dict, train_profile: dict) -> dict:
+    t0 = time.perf_counter()
+    cfg = get_config(ARCH)
+    b, s = PREFILL_SHAPE
+    shapes = {"prefill": (InputShape("chip_prefill", s, b, "prefill"), prefill_profile),
+              "lm_train": (InputShape("chip_lm_train", LM["seq"], LM["batch"], "train"),
+                           train_profile)}
+    bounds = {}
+    for name, (shape, prof) in shapes.items():
+        t1 = time.perf_counter()
+        rec = dryrun.dryrun_on(cfg, shape, SHARD_MESH, skip_costs=True)
+        roof = rec["roofline"]
+        busy = prof["device_busy_ms_per_call"]
+        bound_ms = 1e3 * roof["bound_s"]
+        bounds[name] = {
+            "shape": [shape.global_batch, shape.seq_len], "kind": shape.kind,
+            "flops": roof["flops_per_device"], "bytes": roof["bytes_per_device"],
+            "collective_bytes": roof["collective_bytes_per_device"],
+            "compute_ms": 1e3 * roof["compute_s"], "memory_ms": 1e3 * roof["memory_s"],
+            "collective_ms": 1e3 * roof["collective_s"], "dominant": roof["dominant"],
+            "bound_ms": bound_ms, "device_busy_ms": busy,
+            "bound_share_of_busy": bound_ms / busy if busy else None,
+            "model_flops": rec["model_flops"], "memory": rec["memory"],
+            "kernel_calls": rec["kernel_calls"], "dryrun_seconds": time.perf_counter() - t1}
+        print(f"shard: {cfg.name} {shape.kind} {bounds[name]['shape']}: roofline bound "
+              f"{bound_ms:.3f} ms ({roof['dominant']}; compute "
+              f"{bounds[name]['compute_ms']:.3f}, memory {bounds[name]['memory_ms']:.3f} ms, "
+              f"H100 SXM5 datasheet constants) vs device busy {busy} ms measured: share "
+              f"{bounds[name]['bound_share_of_busy']} [{smi}]", flush=True)
+    t1 = time.perf_counter()
+    (rank,) = dp.spawn(shard_rank, 1, (), SHARD_TIMEOUT_S)
+    rank["seconds_rank"] = time.perf_counter() - t1
+    out = {"card": smi, "mesh": "1x1", "bounds": bounds, "prefill": rank,
+           "launches": {**rank["launches"]}, "seconds": time.perf_counter() - t0}
+    print("shard phase: " + json.dumps(out), flush=True)
+    for name, r in bounds.items():
+        check(r["device_busy_ms"] is not None and r["bound_ms"] <= r["device_busy_ms"],
+              f"shard: the {name} bound {r['bound_ms']} ms exceeds the measured device "
+              f"busy time {r['device_busy_ms']} ms")
+        check(r["kernel_calls"] == {"rmsnorm": 2 * cfg.n_layers + 1,
+                                    "swa_attention": cfg.n_layers},
+              f"shard: the {name} dry-run counted kernels {r['kernel_calls']}")
+    check(rank["logits_type"] == "DTensor" and rank["finite"]
+          and rank["shape"] == [b, s, cfg.vocab_size],
+          f"shard: sharded prefill logits {rank['logits_type']} {rank['shape']}")
+    check(contract(rank), f"shard: DTensor-route prefill vs unsharded: rel err "
+          f"{rank['rel_err_vs_plain']}, argmax {rank['argmax_agree_vs_plain']}")
+    check(rank["launches"] == {"rmsnorm": 2 * cfg.n_layers + 1,
+                               "swa_attention": cfg.n_layers, "fused_sgd_update": 0},
+          f"shard: DTensor-route prefill launches {rank['launches']}")
+    return out
+
+
 def dp_phase(smi: str) -> dict:
     t0 = time.perf_counter()
     out = {"label": DP_LABEL, "card": smi, "runs": {}}
@@ -2602,7 +2715,7 @@ def main() -> int:
           f"{sync_time() - t0:.1f} s", flush=True)
     served = serve_phase(cfg, params)
     prefilled = prefill_phase(cfg, model, params)
-    profile_phase(cfg, model, params)
+    profiled = profile_phase(cfg, model, params)
     del model, params  # each later model's peak memory is its own
     torch.cuda.empty_cache()
     print(f"serving phases done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2628,6 +2741,9 @@ def main() -> int:
     torch.cuda.empty_cache()  # the LM trainer needs most of the card
     lm_trained = lm_train_phase(smi)
     print(f"lm_train phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    torch.cuda.empty_cache()  # the sharded prefill's rank shares the card
+    sharded = shard_phase(smi, profiled["prefill"], lm_trained["profile"])
+    print(f"shard phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     torch.cuda.empty_cache()  # the dp ranks share the card
     data_parallel = dp_phase(smi)
     print(f"dp phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2655,7 +2771,8 @@ def main() -> int:
                          + moe["launches"][name] + vlm["launches"][name]
                          + ssm["launches"][name] + hybrid["launches"][name]
                          + audio["launches"][name] + lm_trained["launches"][name]
-                         + lm_dp["launches"][name]),
+                         + sharded["launches"][name] + lm_dp["launches"][name]),
+            "launches_shard": sharded["launches"][name],  # the DTensor route's prefill
             "launches_per_decode_step": served["launches"][name] / served["decode_steps"],
             "launches_per_prefill": prefilled["launches"][name],
             "launches_per_moe_decode_step": (moe["serve"]["launches"][name]

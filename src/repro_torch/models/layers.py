@@ -9,23 +9,72 @@ Activations keep the reference's ``[B, S, H, D]`` layout.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import implicit_replication
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.rules import ShardingRules, default_rules, placements
 
 NEG_INF = -1e30
 
 
 class Sharder:
-    """The reference's sharding-hint hook. The port has no mesh yet, so it
-    is the identity (sharding is a later slice, see ROADMAP.md)."""
+    """Threads sharding hints through model code (the counterpart of the
+    reference's ``with_sharding_constraint`` hook).
+
+    ``mesh``: a ``DeviceMesh`` with named dims. On a DTensor, ``sh(x,
+    *axes)`` redistributes ``x`` to the placements the rules give for
+    ``x.shape`` and these logical axes. Without a mesh, or on a plain
+    tensor, it is the identity, so the same model code serves one-device
+    runs and sharded ones.
+    """
+
+    def __init__(self, mesh=None, rules: ShardingRules | None = None):
+        self.mesh = mesh
+        self.rules = rules or default_rules()
+        if mesh is not None:
+            from repro_torch.launch.mesh import abstract_mesh
+            self.axes = abstract_mesh(mesh)
 
     def __call__(self, x, *axes):
-        return x
+        if self.mesh is None or not isinstance(x, DTensor):
+            return x
+        want = placements(self.rules.spec_for(axes, x.shape, self.axes),
+                          self.axes)
+        if tuple(x.placements) == want:
+            return x
+        return x.redistribute(self.mesh, want)
+
+    @contextlib.contextmanager
+    def context(self):
+        """Where model code runs on DTensors: the tensors it makes itself
+        (positions, aranges, masks) act as replicated DTensors, and DTensor
+        takes its Python dispatch path (``_DTensorPythonPath``)."""
+        if self.mesh is None:
+            yield
+            return
+        with implicit_replication(), _DTensorPythonPath():
+            yield
+
+
+class _DTensorPythonPath(TorchDispatchMode):
+    """A dispatch mode that changes nothing: DTensor ops go on to DTensor
+    and plain ops run as they are. While a mode is active DTensor takes its
+    Python dispatch path instead of its C++ fast path, which in torch 2.13
+    hands some ops (a view, a slice's backward) the unsharded local tensor
+    once a strategy shards one dim over two mesh dims."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        return func(*args, **(kwargs or {}))
 
 
 NO_SHARD = Sharder()
@@ -86,7 +135,7 @@ def apply_rope(x, positions, theta: float,
         ang = torch.cat(parts, dim=-1)                        # [B,S,d_half]
     cos = torch.cos(ang)[:, :, None, :]                       # [B,S,1,d_half]
     sin = torch.sin(ang)[:, :, None, :]
-    xf1, xf2 = x[..., :d_half].float(), x[..., d_half:].float()
+    xf1, xf2 = x.float().split(d_half, dim=-1)
     out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -112,6 +161,11 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     are not rounded to bf16 before the product with V (the TPU kernel does
     not round them either); the difference is within bf16 tolerance.
     """
+    if isinstance(q, DTensor):  # on the local shards, S and D whole
+        return ops.on_local_shards(
+            lambda *t: chunked_attention(*t, causal=causal, window=window,
+                                         q_offset=q_offset),
+            q, k, v, whole=(1, 3))
     b, sq, h, d = q.shape
 
     def to_bh(t):  # [B, S, H, D] -> [B*H, S, D]
@@ -120,6 +174,42 @@ def chunked_attention(q, k, v, *, causal: bool = True,
     out = ops.swa_attention(to_bh(q), to_bh(k), to_bh(v), causal=causal,
                             window=window, q_offset=q_offset)
     return out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
+
+
+def write_slot(cache, new, pos) -> None:
+    """``cache[b, pos[b]] = new[b]`` for every row b, in place. cache:
+    [B, S, ...]; new: [B, ...]; pos: [B] int. A DTensor cache (its S
+    possibly sharded, as the decode rules shard ``cache_seq``) is written on
+    its local shards: each rank writes the rows whose slot lies in its part
+    of S and keeps the others (static shapes: no index leaves the
+    device)."""
+    if not isinstance(cache, DTensor):
+        bidx = torch.arange(cache.shape[0], device=cache.device)
+        cache[bidx, pos] = new.to(cache.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    mesh, place = cache.device_mesh, cache.placements
+    if any(not isinstance(p, (Shard, Replicate)) for p in place):
+        raise ValueError(f"cache placements {place}")
+    # new [B, ...] follows the cache's dims but S; pos follows its batch
+    new_place = [Replicate() if not isinstance(p, Shard) or p.dim == 1
+                 else Shard(p.dim - (p.dim > 1)) for p in place]
+    pos_place = [Shard(0) if isinstance(p, Shard) and p.dim == 0
+                 else Replicate() for p in place]
+    new = new.redistribute(mesh, new_place).to_local()
+    pos = pos.redistribute(mesh, pos_place).to_local()
+    local = cache.to_local()
+    shape, offset = compute_local_shape_and_global_offset(cache.shape, mesh, place)
+    lp = pos - offset[1]
+    inside = (lp >= 0) & (lp < shape[1])
+    lp = torch.clamp(lp, 0, shape[1] - 1)
+    bidx = torch.arange(local.shape[0], device=local.device)
+    keep = local[bidx, lp]
+    mask = inside.reshape(-1, *([1] * (keep.dim() - 1)))
+    local[bidx, lp] = torch.where(mask, new.to(local.dtype), keep)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window: int | None = None,
@@ -185,8 +275,35 @@ def sinusoidal(positions, d_model: int):
 
 
 # ----------------------------------------------------------- embeddings ----
+def index_select(t, dim: int, index):
+    """``t.index_select(dim, index)``; a DTensor runs on its local shards
+    with ``dim`` whole (its backward then adds into local shards: DTensor
+    has no index_add strategy in some torch versions)."""
+    if isinstance(t, DTensor):
+        return ops.on_local_shards(lambda x: x.index_select(dim, index), t,
+                                   whole=(dim,))
+    return t.index_select(dim, index)
+
+
+def lookup(table, ids):
+    """The rows of ``table`` at ``ids`` (an embedding). DTensors run on
+    local shards: the table whole on every rank, the output sharded as
+    ``ids``; the table's local gradient is a pending sum over the mesh dims
+    that split ``ids``."""
+    if not isinstance(table, DTensor):
+        return table[ids.long()]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    ids = ops._whole(ids, ())
+    place = tuple(ids.placements)
+    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in place]
+    return ops.on_local_shards_as(lambda t, i: t[i.long()], (table, ids),
+                                  ([Replicate()] * len(place), place),
+                                  (grad, place), place)
+
+
 def embed_tokens(embedding, tokens, scale: float | None = None):
-    x = embedding[tokens.long()].to(torch.bfloat16)
+    x = lookup(embedding, tokens).to(torch.bfloat16)
     if scale is not None:
         x = x * torch.tensor(scale, dtype=x.dtype)  # scale rounded to bf16 first
     return x
@@ -197,11 +314,18 @@ def lm_logits(x, out_embedding):
     return torch.einsum("bsd,vd->bsv", x.float(), out_embedding.float())
 
 
-def softmax_cross_entropy(logits, labels, mask=None):
-    """Mean CE over valid positions; logits [B,S,V] f32, labels [B,S]."""
+def _nll(logits, labels):
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = lse - gold
+    return lse - gold
+
+
+def softmax_cross_entropy(logits, labels, mask=None):
+    """Mean CE over valid positions; logits [B,S,V] f32, labels [B,S]."""
+    if isinstance(logits, DTensor):  # on the local rows, the vocab whole
+        nll = ops.on_local_shards(_nll, logits, labels, whole=(-1,))
+    else:
+        nll = _nll(logits, labels)
     if mask is None:
         return torch.mean(nll)
     mask = torch.as_tensor(mask, device=logits.device).float()

@@ -22,9 +22,11 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.spec import TensorSpec as TS, init_flat, init_params
 from repro_torch.models.transformer import _layer_params
@@ -153,6 +155,27 @@ def ssd(xin, Bm, Cm, dt, dA, chunk: int):
     return torch.cat(ys, dim=1)
 
 
+def _ssd_on_shards(xin, Bm, Cm, dt, dA, chunk: int):
+    """``ssd`` of DTensors on each rank's own batch rows, heads and head
+    dims (they are independent in the SSD), with S and the state dim
+    whole. xin [B, S, H, P] leads; Bm/Cm [B, S, N] and dt/dA [B, S, H]
+    follow its batch sharding (and dt/dA its heads'); their local
+    gradients are pending sums over the mesh dims on which xin splits a
+    dim they lack."""
+    xin = ops._whole(xin, (1,))
+    bcs, hs, gbcs, ghs = [], [], [], []
+    for pl in xin.placements:
+        d = pl.dim if isinstance(pl, Shard) else None
+        bcs.append(Shard(0) if d == 0 else Replicate())
+        hs.append(Shard(d) if d in (0, 2) else Replicate())
+        gbcs.append(Shard(0) if d == 0 else Partial() if d else Replicate())
+        ghs.append(Shard(d) if d in (0, 2) else Partial() if d else Replicate())
+    place = tuple(xin.placements)
+    return ops.on_local_shards_as(
+        lambda *t: ssd(*t, chunk), (xin, Bm, Cm, dt, dA),
+        (place, bcs, bcs, hs, hs), (place, gbcs, gbcs, ghs, ghs), place)
+
+
 def mamba_mixer(cfg: ModelConfig, p, x, sh):
     """Chunked SSD. x: [B, S, D] -> [B, S, D]."""
     dt_ = x.dtype
@@ -166,7 +189,10 @@ def mamba_mixer(cfg: ModelConfig, p, x, sh):
     a = -torch.exp(p["A_log"].float())                                 # [H]
     dA = dt * a
 
-    y = ssd(xin, Bm, Cm, dt, dA, cfg.ssm_chunk)
+    if isinstance(xin, DTensor):
+        y = _ssd_on_shards(xin, Bm, Cm, dt, dA, cfg.ssm_chunk)
+    else:
+        y = ssd(xin, Bm, Cm, dt, dA, cfg.ssm_chunk)
     return _finish(p, y, xin, z)
 
 

@@ -16,8 +16,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 from repro_torch.models.spec import TensorSpec as TS
 
 
@@ -64,26 +66,15 @@ def _top_k(probs: torch.Tensor, k: int):
     return values[..., :k], index[..., :k]
 
 
-def moe_ffn(cfg: ModelConfig, p, x, sh):
-    """x: [B, S, D] -> (out [B, S, D], aux_loss 0-d f32)."""
-    dt = x.dtype
-    B, S, D = x.shape
-    E, K = cfg.n_experts, cfg.top_k
+def _dispatch_indices(eid: torch.Tensor, E: int, C: int):
+    """Group-local sorted dispatch of top-k choices ``eid`` [B, S, K] into
+    E experts of C slots -> (src_tok [B, E*C]: the token in each slot,
+    valid [B, E, C]: the slot is filled, idx [B, S*K]: each assignment's
+    slot in E*C, live [B, S*K]: the assignment was kept). Each batch row is
+    its own group."""
+    B, S, K = eid.shape
     SK = S * K
-    C = group_capacity(S, cfg)
-    dev = x.device
-
-    logits = torch.einsum("bsd,de->bse", x, p["router"].to(dt)).float()  # [B,S,E]
-    probs = torch.softmax(logits, dim=-1)
-    gate, eid = _top_k(probs, K)                                     # [B,S,K]
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
-
-    # Switch-style load-balance loss.
-    experts = torch.arange(E, device=dev)
-    frac = (eid[..., 0, None] == experts).float().mean(dim=(0, 1))
-    aux = E * torch.sum(frac * probs.mean(dim=(0, 1)))
-
-    # ---- group-local sorted dispatch ------------------------------------
+    dev = eid.device
     flat_e = eid.reshape(B, SK)
     order = torch.argsort(flat_e, dim=-1, stable=True)               # [B,SK]
     sorted_e = torch.gather(flat_e, 1, order)
@@ -99,9 +90,67 @@ def moe_ffn(cfg: ModelConfig, p, x, sh):
     slot = torch.clamp(slot, 0, SK - 1)
     src = torch.gather(order, 1, slot.reshape(B, E * C))
     src_tok = src // K                                               # [B,E*C]
+    # Each assignment gathers its expert's output through the inverse of
+    # the sort permutation; one past its expert's C slots was dropped.
+    inv = torch.argsort(order, dim=-1)                     # rank of asgn i
+    slot = inv - torch.gather(offsets, 1, flat_e)                    # [B,SK]
+    live = slot < C
+    slot = torch.clamp(slot, 0, C - 1)
+    idx = flat_e * C + slot                                # [B,SK] into E*C
+    return src_tok, valid, idx, live
 
-    gx = torch.gather(x, 1, src_tok[..., None].expand(B, E * C, D))  # [B,EC,D]
-    gx = gx.reshape(B, E, C, D) * valid[..., None].to(dt)
+
+def _gather_tokens(x, src_tok, valid):
+    """[B, S, D] tokens into their [B, E, C, D] expert slots."""
+    B, EC = src_tok.shape
+    E, C = valid.shape[1:]
+    D = x.shape[-1]
+    gx = torch.gather(x, 1, src_tok[..., None].expand(B, EC, D))     # [B,EC,D]
+    return gx.reshape(B, E, C, D) * valid[..., None].to(x.dtype)
+
+
+def _combine(eo, idx, live, gate):
+    """Each token's gate-weighted sum of its experts' outputs (gather-based:
+    no scatter) -> [B, S, D]."""
+    B, E, C, D = eo.shape
+    SK = idx.shape[1]
+    S, K = gate.shape[1:]
+    gathered = torch.gather(eo.reshape(B, E * C, D), 1,
+                            idx[..., None].expand(B, SK, D))         # [B,SK,D]
+    w = (gate.reshape(B, SK) * live.float()).to(eo.dtype)
+    return (gathered * w[..., None]).reshape(B, S, K, D).sum(dim=2)
+
+
+def _batch_local(fn, *ts):
+    """``fn`` on each rank's own batch rows: DTensors run on their local
+    shards with every dim but the batch dim whole (the dispatch is
+    group-local, a group being a batch row); plain tensors run as they
+    are."""
+    if not isinstance(ts[0], DTensor):
+        return fn(*ts)
+    return ops.on_local_shards(fn, *ts, whole=range(1, 8))
+
+
+def moe_ffn(cfg: ModelConfig, p, x, sh):
+    """x: [B, S, D] -> (out [B, S, D], aux_loss 0-d f32)."""
+    dt = x.dtype
+    E, K = cfg.n_experts, cfg.top_k
+    C = group_capacity(x.shape[1], cfg)
+
+    logits = torch.einsum("bsd,de->bse", x, p["router"].to(dt)).float()  # [B,S,E]
+    probs = torch.softmax(logits, dim=-1)
+    gate, eid = _batch_local(lambda t: _top_k(t, K), probs)          # [B,S,K]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+    # Switch-style load-balance loss.
+    experts = torch.arange(E, device=x.device)
+    frac = (eid[..., 0, None] == experts).float().mean(dim=(0, 1))
+    aux = E * torch.sum(frac * probs.mean(dim=(0, 1)))
+
+    # ---- group-local sorted dispatch ------------------------------------
+    src_tok, valid, idx, live = _batch_local(
+        lambda e: _dispatch_indices(e, E, C), eid)
+    gx = _batch_local(_gather_tokens, x, src_tok, valid)
     gx = sh(gx, "batch", "experts", "capacity", "embed")
 
     # ---- expert FFN (gated silu) ----------------------------------------
@@ -110,16 +159,6 @@ def moe_ffn(cfg: ModelConfig, p, x, sh):
     eo = torch.einsum("becf,efd->becd", g * u, p["wo"].to(dt))       # [B,E,C,D]
     eo = sh(eo, "batch", "experts", "capacity", "embed")
 
-    # ---- combine (gather-based: no scatter) -----------------------------
-    # Each assignment gathers its expert's output through the inverse of
-    # the sort permutation; one past its expert's C slots was dropped.
-    inv = torch.argsort(order, dim=-1)                     # rank of asgn i
-    slot = inv - torch.gather(offsets, 1, flat_e)                    # [B,SK]
-    live = slot < C
-    slot = torch.clamp(slot, 0, C - 1)
-    idx = flat_e * C + slot                                # [B,SK] into E*C
-    gathered = torch.gather(eo.reshape(B, E * C, D), 1,
-                            idx[..., None].expand(B, SK, D))         # [B,SK,D]
-    w = (gate.reshape(B, SK) * live.float()).to(dt)
-    out = (gathered * w[..., None]).reshape(B, S, K, D).sum(dim=2)
+    # ---- combine ---------------------------------------------------------
+    out = _batch_local(_combine, eo, idx, live, gate)
     return out.to(dt), aux

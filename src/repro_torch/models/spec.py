@@ -163,3 +163,87 @@ def init_flat(generator: torch.Generator, tree: dict, device) -> FlatTree:
         v.copy_(_init_one(generator, specs[path], device))
     return out
 
+
+
+# ---------------------------------------------- abstract and sharded trees --
+def is_spec(x) -> bool:
+    return isinstance(x, TensorSpec)
+
+
+def tree_map(fn, tree):
+    """``fn`` of each TensorSpec leaf of a nested dict, in the same
+    structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def abstract(tree) -> dict:
+    """A tree of ``meta`` tensors of the specs' shapes and dtypes (the
+    counterpart of the reference's ShapeDtypeStruct tree): no storage."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+                    tree)
+
+
+def cast(tree, dtype: torch.dtype) -> dict:
+    """Spec tree with dtype replaced (e.g. bf16 serving params)."""
+    return tree_map(lambda s: dataclasses.replace(s, dtype=dtype), tree)
+
+
+def local_specs(tree, mesh, rules) -> dict:
+    """The spec tree of one device's shards: each leaf's shape cut as the
+    rules shard it on ``mesh`` (a DeviceMesh or an AbstractMesh)."""
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.sharding.rules import local_shape
+
+    m = abstract_mesh(mesh)
+    return tree_map(lambda s: dataclasses.replace(
+        s, shape=local_shape(rules.spec_for(s.axes, s.shape, m), s.shape, m)),
+        tree)
+
+
+def as_dtensors(local_tree: dict, spec_tree: dict, mesh, rules) -> dict:
+    """Wrap each local shard of ``local_tree`` (a tree of tensors, or of
+    tuples of per-layer tensors for a stacked leaf) as the DTensor of its
+    spec's global shape and the rules' placements. No data moves."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.sharding.rules import placements
+
+    m = abstract_mesh(mesh)
+    flat_local, out = flatten(local_tree), {}
+    for path, s in flatten(spec_tree).items():
+        place = placements(rules.spec_for(s.axes, s.shape, m), m)
+        t = flat_local[path]
+        if isinstance(t, tuple):  # per-layer slices of a stacked leaf
+            inner = tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+                          for p in place)
+            if any(isinstance(p, Shard) and p.dim == 0 for p in place):
+                raise ValueError(f"{path}: a sharded layers dim cannot be unbound")
+            out[path] = tuple(DTensor.from_local(
+                ti, mesh, inner, run_check=False, shape=torch.Size(s.shape[1:]),
+                stride=_contiguous_stride(s.shape[1:])) for ti in t)
+        else:
+            out[path] = DTensor.from_local(
+                t, mesh, place, run_check=False, shape=torch.Size(s.shape),
+                stride=_contiguous_stride(s.shape))
+    return unflatten(out)
+
+
+def _contiguous_stride(shape) -> tuple[int, ...]:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def distributed(tree: dict, mesh, rules, device) -> dict:
+    """A spec tree as DTensors of zeros on ``mesh``: each rank holds a
+    local shard of the shape the rules give, on ``device`` (``meta``, the
+    dry-run's: nothing is allocated)."""
+    local = local_specs(tree, mesh, rules)
+    shards = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
+                      local)
+    return as_dtensors(shards, tree, mesh, rules)

@@ -104,16 +104,15 @@ def attention(cfg: ModelConfig, p, x, positions, sh, *,
     head_map = _head_map(H_real, H_pad, cfg.n_kv_heads, x.device)
     if cache is not None:
         k_cache, v_cache = cache
-        bidx = torch.arange(k.shape[0], device=x.device)
-        k_cache[bidx, pos] = k[:, 0].to(k_cache.dtype)
-        v_cache[bidx, pos] = v[:, 0].to(v_cache.dtype)
+        L.write_slot(k_cache, k[:, 0], pos)
+        L.write_slot(v_cache, v[:, 0], pos)
         attn = L.decode_attention(
-            q, k_cache.to(dt).index_select(2, head_map),
-            v_cache.to(dt).index_select(2, head_map),
+            q, L.index_select(k_cache.to(dt), 2, head_map),
+            L.index_select(v_cache.to(dt), 2, head_map),
             pos, window=window, repeated=True)
     else:
-        attn = L.chunked_attention(q, k.index_select(2, head_map),
-                                   v.index_select(2, head_map),
+        attn = L.chunked_attention(q, L.index_select(k, 2, head_map),
+                                   L.index_select(v, 2, head_map),
                                    causal=causal, window=window)
     if H_pad != H_real:
         mask = (torch.arange(H_pad, device=x.device) < H_real).to(dt)
@@ -298,3 +297,22 @@ class TransformerModel:
         x = L.apply_norm(cfg, x, params["final_norm"])
         logits = L.lm_logits(x, self._unembed(params))
         return logits, cache
+
+    # ------------------------------------------------------------ inputs ---
+    def input_specs(self, shape: InputShape) -> dict:
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        tok = ("batch", "seq")
+        if shape.kind == "train":
+            d = {"tokens": TS((B, S), tok, dtype=torch.int32),
+                 "labels": TS((B, S), tok, dtype=torch.int32)}
+        elif shape.kind == "prefill":
+            d = {"tokens": TS((B, S), tok, dtype=torch.int32)}
+        else:
+            d = {"tokens": TS((B, 1), tok, dtype=torch.int32),
+                 "pos": TS((B,), ("batch",), dtype=torch.int32)}
+        if cfg.frontend == "vision" and shape.kind != "decode":
+            d["patch_embeds"] = TS((B, cfg.n_frontend_tokens, cfg.d_model),
+                                   ("batch", "patch", "embed"),
+                                   dtype=torch.bfloat16)
+        return d

@@ -62,7 +62,9 @@ def test_every_module_imports_without_jax_or_repro():
             "repro_torch.core.resource_model", "repro_torch.core.jobs",
             "repro_torch.core.telemetry", "repro_torch.core.scheduler",
             "repro_torch.core.faults", "repro_torch.core.placement",
-            "repro_torch.core._reference", "repro_torch.core.simulator"} <= set(names)
+            "repro_torch.core._reference", "repro_torch.core.simulator",
+            "repro_torch.sharding", "repro_torch.sharding.rules",
+            "repro_torch.launch.analysis", "repro_torch.launch.dryrun"} <= set(names)
     loaded = _loaded_after("\n".join(f"import {n}" for n in names))
     assert "repro_torch" in loaded and "torch" in loaded
     assert _foreign(loaded) == []
@@ -87,6 +89,22 @@ def test_changed_launchers_and_whisper_import_alone_without_jax_or_repro(module)
     in a fresh interpreter."""
     loaded = _loaded_after(f"import {module}")
     assert module in loaded and _foreign(loaded) == []
+
+
+@pytest.mark.parametrize("module", ["repro_torch.sharding.rules",
+                                    "repro_torch.launch.mesh",
+                                    "repro_torch.launch.analysis",
+                                    "repro_torch.launch.dryrun"])
+def test_sharding_and_dryrun_modules_import_alone_without_jax_or_repro(module):
+    """The sharding rules, the meshes, the roofline and the dry-run, each
+    on its own in a fresh interpreter; the dry-run's CLI help runs too."""
+    loaded = _loaded_after(f"import {module}")
+    assert module in loaded and _foreign(loaded) == []
+    if module.endswith("dryrun"):
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        out = subprocess.run([sys.executable, "-m", module, "--help"], env=env,
+                             cwd=ROOT, capture_output=True, text=True, check=True)
+        assert "--skip-costs" in out.stdout and "--save-hlo" not in out.stdout
 
 
 def test_chip_smoke_fails_without_a_gpu():

@@ -150,14 +150,21 @@ def test_swa_wrapper_checks_cross_attention_shapes(q_shape, kv_shape, window,
 
 @pytest.mark.parametrize("sq,sk,q_offset", [(4, 6, 0), (4, 4, 2)])
 def test_swa_attention_gradient_refuses_cross_attention(sq, sk, q_offset):
-    """The backward formula has no Sq != Sk or offset case: a call that
-    wants a gradient raises, naming the ROADMAP item, and launches
-    nothing; without grad the same call runs."""
-    q = torch.zeros(2, sq, 32, requires_grad=True)
-    kv = torch.zeros(2, sk, 32)
+    """The backward formula now takes Sq != Sk and an offset: a call that
+    wants a gradient goes to the autograd Function (nothing is refused any
+    more, and nothing launches on the CPU), and its gradient is the plain
+    version's (tests/test_torch_swa_cross_grad.py holds it at more
+    shapes); without grad the same call runs."""
+    q = torch.randn(2, sq, 32, requires_grad=True)
+    kv = torch.randn(2, sk, 32, requires_grad=True)
     before = ops.launch_counts()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.swa_attention(q, kv, kv, q_offset=q_offset)
+    out = ops.swa_attention(q, kv, kv, q_offset=q_offset)
+    assert type(out.grad_fn).__name__ == "_SWAAttentionBackward"
+    got = torch.autograd.grad(out.sum(), (q, kv))
+    want = torch.autograd.grad(ref.swa_attention_ref(q, kv, kv, q_offset=q_offset).sum(),
+                               (q, kv))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
     assert ops.launch_counts() == before
     with torch.no_grad():
         assert ops.swa_attention(q, kv, kv, q_offset=q_offset).shape == q.shape

@@ -14,6 +14,7 @@ import torch
 
 import repro.models.layers as JL
 import repro_torch.models.layers as TL
+from repro_torch.kernels import ref
 from repro_torch.configs import get_smoke_config
 from _torch_parity import both
 
@@ -124,15 +125,23 @@ def test_chunked_attention_cross(sq, sk, causal, window, q_offset, dtype):
 
 
 def test_chunked_attention_refuses_cross_attention():
-    """Cross-attention (Sq != Sk) and queries at an offset run forward only:
-    the attention Function's backward formula has no such case, so a call
-    that wants a gradient raises (whisper training is a ROADMAP item)."""
-    q = torch.zeros(1, 4, 2, 32, requires_grad=True)
-    kv = torch.zeros(1, 6, 2, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TL.chunked_attention(q, kv, kv, causal=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TL.chunked_attention(q, q, q, q_offset=3)
+    """Cross-attention (Sq != Sk) and queries at an offset now take a
+    gradient too (nothing is refused any more): the attention Function's
+    backward formula has both cases, and its gradient is autograd's
+    through the plain version (tests/test_torch_swa_cross_grad.py holds
+    more shapes)."""
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(_normal(rng, 1, 4, 2, 32)).requires_grad_()
+    kv = torch.from_numpy(_normal(rng, 1, 6, 2, 32)).requires_grad_()
+    def to_bh(t):  # [B, S, H, D] -> [B*H, S, D]
+        return t.permute(0, 2, 1, 3).reshape(2, t.shape[1], 32)
+
+    for args, kw, wrt in (((q, kv, kv), dict(causal=False), (q, kv)),
+                          ((q, q, q), dict(q_offset=3), (q,))):
+        got = torch.autograd.grad(TL.chunked_attention(*args, **kw).sum(), wrt)
+        want = torch.autograd.grad(ref.swa_attention_ref(*map(to_bh, args), **kw).sum(), wrt)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
     with torch.no_grad():
         assert TL.chunked_attention(q, kv, kv, causal=False).shape == q.shape
 

@@ -312,9 +312,9 @@ def _both_models(arch, seed=0):
 # from its f32 gradient (flat relative L2; cpu_ssm_sensitivity.py), so a
 # port that rounds at other places cannot meet 0.05 against it. Their
 # loss and gradient are held in f32 (and their loss in bf16) in
-# test_torch_mamba2.py and test_torch_hybrid.py. whisper-base (audio)
-# does not train in the port: its cross-attention has no backward yet
-# (test_torch_whisper.py holds its loss).
+# test_torch_mamba2.py and test_torch_hybrid.py. whisper-base's (audio)
+# loss and gradient, through its cross-attention, are held in f32 in
+# test_torch_swa_cross_grad.py.
 TRANSFORMER_ARCHS = [a for a in ARCH_IDS
                      if get_smoke_config(a).family not in ("ssm", "hybrid", "audio")]
 
