@@ -2051,15 +2051,19 @@ def sched_profile(model, params, data) -> dict:
     return out
 
 
-def card_table3(T_fwd: float, T_back: float, restart_cost: float) -> dict:
+def card_table3(T_fwd: float, T_back: float, restart_cost: float,
+                hw: cost.HardwareCoefficients = cost.INFINIBAND_100G) -> dict:
     """Table 3's poisson traces with every job's step time from the card's
-    profile (eqs. 2-4 at the paper's InfiniBand for the exchange): avg JCT
-    in hours per level and strategy, and each run's jobs completed."""
-    cluster = cost.ClusterModel(capacity=64, restart_cost=restart_cost)
+    profile and eqs. 2-4 at ``hw`` for the exchange (the jobs' and the
+    cluster's coefficients: the paper's InfiniBand, or the four H100s'
+    NVLink under NCCL): avg JCT in hours per level and strategy, and each
+    run's jobs completed."""
+    cluster = cost.ClusterModel(capacity=64, restart_cost=restart_cost, hw=hw)
     jct, completed, traces = {}, {}, {}
     for level, (gap, n_jobs) in SCHED_CONTENTION.items():
         traces[level] = [dataclasses.replace(j, speed_mode="analytic", T_fwd=T_fwd,
-                                             T_back=T_back, T_const=0.0, T_per_worker=0.0)
+                                             T_back=T_back, T_const=0.0, T_per_worker=0.0,
+                                             hw=hw)
                          for j in make_workload("poisson", n_jobs, gap, 0)]
         runs = {s: simulate(traces[level], strategy=s, cluster=cluster)
                 for s in TABLE3_STRATEGIES}
@@ -2068,7 +2072,8 @@ def card_table3(T_fwd: float, T_back: float, restart_cost: float) -> dict:
                             for s, r in runs.items()}
     table, ref = (simulate(traces["none"], strategy="precompute", cluster=cluster,
                            engine=engine) for engine in ("table", "reference"))
-    return {"restart_cost_s": restart_cost, "avg_jct_hours": jct, "completed": completed,
+    return {"hw": hw.name, "restart_cost_s": restart_cost, "avg_jct_hours": jct,
+            "completed": completed,
             "precompute_over_best_fixed": over_best_fixed(jct),
             "engines_bit_identical_none_precompute": {
                 j: t.hex() for j, t in table.completion_times.items()} == {
@@ -2114,6 +2119,8 @@ def sched_phase(smi: str) -> dict:
             paper = PAPER_TABLE1[w]
             rows.append({"w": w, "compute_ms": prof["fwd_back_ms"],
                          "comm_ms_analytic_ib100g": 1e3 * comm,
+                         "comm_ms_analytic_h100_nvlink": 1e3 * cost.step_time(
+                             1, 0.0, 0.0, w, n_bytes, cost.H100_NVLINK),
                          "step_ms": 1e3 * step_times[w],
                          "images_per_s": m * w / step_times[w],
                          "paper_k40m": {"fwd_ms": paper[0], "back_ms": paper[1],
@@ -2149,8 +2156,10 @@ def sched_phase(smi: str) -> dict:
     out["table3"] = {
         "paper_calibration": {"avg_jct_hours": calibrated,
                               "precompute_over_best_fixed": over_best_fixed(calibrated)},
-        "card_profile": [card_table3(prof["T_fwd"], prof["T_back"], rc) for rc in
-                         (out["stop_restart_seconds"], PAPER_RESTART_SECONDS)]}
+        **{key: [card_table3(prof["T_fwd"], prof["T_back"], rc, hw) for rc in
+                 (out["stop_restart_seconds"], PAPER_RESTART_SECONDS)]
+           for key, hw in (("card_profile", cost.INFINIBAND_100G),
+                           ("card_profile_h100_nvlink", cost.H100_NVLINK))}}
     out["seconds_host_table3"] = time.perf_counter() - t0
     out["seconds"] = time.perf_counter() - t_start
 
@@ -2160,10 +2169,13 @@ def sched_phase(smi: str) -> dict:
               f"{m} images) + comm {r['comm_ms_analytic_ib100g']:.3f} ms (analytic, eqs. "
               f"2-4 at the paper's 100 Gbit/s InfiniBand; not a measurement of the card) "
               f"= {r['step_ms']:.3f} ms, {r['images_per_s']:.1f} images/s; the paper's "
-              f"K40m: {k['step_ms']} ms, {k['images_per_s']} images/s [{smi}]", flush=True)
+              f"K40m: {k['step_ms']} ms, {k['images_per_s']} images/s; comm at the "
+              f"H100s' NVLink (eqs. 2-4 at cost.H100_NVLINK, chip_nccl.py's fit) "
+              f"{r['comm_ms_analytic_h100_nvlink']:.3f} ms [{smi}]", flush=True)
     for label, t3 in [("paper calibration", out["table3"]["paper_calibration"])] + [
-            (f"card profile, restart {t['restart_cost_s']:.3f} s", t)
-            for t in out["table3"]["card_profile"]]:
+            (f"card profile, {t['hw']}, restart {t['restart_cost_s']:.3f} s", t)
+            for key in ("card_profile", "card_profile_h100_nvlink")
+            for t in out["table3"][key]]:
         for level, row in t3["avg_jct_hours"].items():
             print(f"sched table3 [{label}] {level:8s} " + " ".join(
                 f"{s} {v:.4f}" for s, v in row.items())
@@ -2182,7 +2194,7 @@ def sched_phase(smi: str) -> dict:
     check(counts == {"rmsnorm": 0, "swa_attention": 0,
                      "fused_sgd_update": steps_1 + steps_2},
           f"sched launches {counts}: one fused_sgd_update per step")
-    for t in out["table3"]["card_profile"]:
+    for t in out["table3"]["card_profile"] + out["table3"]["card_profile_h100_nvlink"]:
         check(all(all(row.values()) for row in t["completed"].values()),
               f"every job completes: {t['completed']}")
         check(t["engines_bit_identical_none_precompute"],
@@ -2412,7 +2424,10 @@ def _no_all_gather(x, group=None, algorithm="ring"):
     w = torch.distributed.get_world_size(group)
     r = torch.distributed.get_rank(group)
     n = x.numel()
-    buf = torch.zeros(n + (-n) % w, pin_memory=x.is_cuda)
+    if cdist.transport(group, x) == "nccl":
+        buf = torch.zeros(n + (-n) % w, device=x.device)
+    else:
+        buf = torch.zeros(n + (-n) % w, pin_memory=x.is_cuda)
     buf[:n].copy_(x)
     cdist._ring_reduce_scatter(buf, w, r, group)
     return x.copy_(buf[:n])
@@ -2433,6 +2448,10 @@ def faulty_runs(rank, run, dev) -> dict:
 
 DP_LABEL = ("times: host clock, gloo over host memory with CUDA<->pinned staging, "
             "all ranks sharing one card; not an all-reduce number of the card")
+# how each transport moves the exchanged bytes, as the dp lines print it
+TRANSPORT_NOTE = {"gloo-host": "gloo over host memory, staging included",
+                  "gloo": "gloo over host memory", "nccl": "NCCL, one card a rank, "
+                  "device synced"}
 
 
 def dp_rank(rank, run, controls, init_method, out_dir):
@@ -2460,6 +2479,7 @@ def dp_run(spec, control_steps: int | None) -> tuple[dict, list[dict]]:
     Returns ``dp.summary`` with the init digests, the psum ranks' spread
     over the largest element of the update, the controls' update errors
     and the seconds; and the ranks' results."""
+    mesh_module.check_cards(spec.backend, spec.world, spec.device)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="dp_") as tmp:
         init_digest, updates, scale = dp.one_process_updates(spec, Path(tmp))
@@ -2495,8 +2515,8 @@ def dp_launches(ranks: list[dict]) -> dict[str, int]:
 def dp_report(name: str, summary: dict, smi: str) -> None:
     for alg, a in summary["algorithms"].items():
         print(f"{name} {alg:16s} step {a['step_ms_median']} ms, exchange in the "
-              f"steps {a['exchange_ms_median']} ms (host clock, gloo over host "
-              f"memory, staging included; {summary['transport']}), "
+              f"steps {a['exchange_ms_median']} ms (host clock, "
+              f"{TRANSPORT_NOTE[summary['transport']]}; {summary['transport']}), "
               f"{a['bytes_sent_per_rank']} bytes sent per rank and step, ranks "
               f"bit-identical {a['ranks_bit_identical']}, update vs one process "
               f"{a['update_rel_err_vs_reference']}, peak memory per rank "
@@ -2505,7 +2525,8 @@ def dp_report(name: str, summary: dict, smi: str) -> None:
 
 def dp_gates(where: str, spec, summary: dict, ranks: list[dict],
              per_step: dict[str, int], limit: float) -> None:
-    """The data-parallel gates: one init everywhere, staged gloo, psum's
+    """The data-parallel gates: one init everywhere, the spec's transport
+    (staged gloo, or nccl), psum's
     ranks within DP_F32_LIMIT and the others' bits identical, ``per_step``
     launches a rank and step, finite losses, every rank's update within
     ``limit`` of the one-process update, the first-step exchange within
@@ -2514,7 +2535,10 @@ def dp_gates(where: str, spec, summary: dict, ranks: list[dict],
     check(summary["same_init"] and summary["init_digests"][0]
           == summary["init_digest_one_process"],
           f"{where}: one init on every rank and in the parent")
-    check(summary["transport"] == "gloo-host", f"{where}: transport {summary['transport']}")
+    want = ("nccl" if spec.backend == "nccl" else
+            "gloo-host" if torch.device(spec.device).type == "cuda" else "gloo")
+    check(summary["transport"] == want,
+          f"{where}: transport {summary['transport']}, expected {want}")
     for alg, a in summary["algorithms"].items():
         at = f"{where} {alg}"
         if alg == "psum":

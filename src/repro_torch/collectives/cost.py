@@ -4,11 +4,12 @@
 γ: compute cost per vector byte [s/B]; n: model gradient size [bytes];
 m: per-worker minibatch; w: workers.
 
-The coefficients are those of the paper's cluster, 100 Gbit/s (4x EDR)
-InfiniBand between K40m-era hosts (``INFINIBAND_100G``, the default of every
-function here and of ``ClusterModel``). No coefficient of an H100's fabric
-(NVLink, NCCL) has been measured: a step time from these functions is the
-paper's cluster's, not the card's.
+The default coefficients are those of the paper's cluster, 100 Gbit/s
+(4x EDR) InfiniBand between K40m-era hosts (``INFINIBAND_100G``, the default
+of every function here and of ``ClusterModel``): a step time from these
+functions is the paper's cluster's unless a caller passes another set.
+``H100_NVLINK`` is the port's own fabric: four H100s of one host under
+NCCL, fitted by ``chip_nccl.py``'s calibrate phase.
 """
 from __future__ import annotations
 
@@ -30,6 +31,20 @@ class HardwareCoefficients:
 # The paper's cluster: 100 Gbit/s (4x EDR) InfiniBand, K40m-era hosts.
 INFINIBAND_100G = HardwareCoefficients(
     alpha=2e-6, beta=1.0 / 12.5e9, gamma=1.0 / 50e9, name="ib_100g")
+
+# Four NVIDIA H100 80GB HBM3 of one host, 700 W power limit each, NVLink
+# between them; NCCL 2.28.9 (torch 2.11, CUDA 12.8) moves the rounds P2P
+# ("via P2P/CUMEM"). alpha and beta: one ring-neighbour round of
+# collectives.dist (every rank sends s bytes to the next while receiving s
+# from the previous) from 4 KB to 1 GB, median of 20, fitted t = alpha +
+# s beta on the host clock with the device synced; alpha is that Python
+# round's per-message latency (NCCL's own by CUDA events: 1.77e-4 s), as
+# Horovod's software latency is the paper's. gamma: the round's in-place
+# f32 add alone, CUDA events, seconds per byte reduced. chip_nccl.py's
+# calibrate phase (PERF.md section 6).
+H100_NVLINK = HardwareCoefficients(
+    alpha=2.1058401063711458e-04, beta=3.2905370501189696e-12,
+    gamma=8.86476479192228e-13, name="h100_nvlink")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,8 +12,16 @@ are the reference's, so in f32 every rank ends with the bits that
 
 Transport. The group's backend decides how bytes move:
 
-- ``nccl`` takes CUDA tensors directly (written, not yet run: NCCL needs
-  a card per rank);
+- ``nccl`` takes CUDA tensors directly, one card a rank
+  (``launch.mesh.init_data_group`` binds the group to the rank's card, so
+  every round reuses the world communicator). A round returns once the
+  current stream waits for it; the host does not block, so a host-clock
+  time must follow a device synchronisation. The in-place add of a round
+  stays on the current stream: the next round's send and receive wait for
+  it there, which is what makes reusing the receive buffer safe. On four
+  H100s of one host the rounds and ``dist.all_reduce`` move the bytes
+  over NVLink (``chip_nccl.py`` prints NCCL's transport, the schedules'
+  bits against gloo's on the host, and the times);
 - ``gloo`` moves host memory. A CUDA buffer is copied once into a pinned
   host buffer, every round runs on the host, and the result is copied
   back once: gloo is never handed a CUDA tensor. ``transport`` names the
@@ -62,7 +70,8 @@ def _peer(group, rank: int) -> int:
 def _exchange(send: torch.Tensor, recv: torch.Tensor, to: int, frm: int,
               group) -> None:
     """One round: send ``send`` to rank ``to`` while receiving ``recv`` from
-    rank ``frm`` (ranks of ``group``); returns when both are done."""
+    rank ``frm`` (ranks of ``group``); returns when both are done (under
+    nccl: when the current stream waits for both)."""
     ops = [dist.P2POp(dist.isend, send, _peer(group, to), group),
            dist.P2POp(dist.irecv, recv, _peer(group, frm), group)]
     for req in dist.batch_isend_irecv(ops):

@@ -10,17 +10,22 @@ By default the example's run: qwen2.5-3b at smoke size on 8 ranks, 8
 sequences of 64 tokens each, SGD at a constant LR of 0.05, 10 steps under
 psum, ring and doubling_halving in turn. ``--arch resnet-110`` trains
 ResNet-110 instead: at full size on 4 ranks on the card, the smoke ResNet
-with ``--device cpu``. On the card the ranks share it over gloo (each
-rank's gradients staged through pinned host memory). Each rank is a
-process started with the ``spawn`` method, joined by a ``file://``
-rendezvous in a fresh temporary directory. All ranks start from one
+with ``--device cpu``. The transport is the run's ``backend``. Under
+"gloo" (the default) the ranks share the current card and each rank's
+gradients are staged through pinned host memory ("gloo-host"). Under
+"nccl" rank r runs on card r (``cuda:r``), one card a rank, and the
+exchange moves device memory over NCCL: on four H100s of one host that is
+NVLink, P2P between the cards (``chip_nccl.py`` prints what NCCL chose).
+Each rank is a process started with the ``spawn`` method, joined by a
+``file://`` rendezvous in a fresh temporary directory. All ranks start from one
 seeded init (or the flat parameters the caller gives) and train the same
 steps under each algorithm in turn; each returns its losses, final
 parameters (or, against a reference update, its distance from it), launch
 counts, step times and the times of the steps' exchanges, and the
 exchange of its first-step gradients under every algorithm against
-``dist.all_reduce``'s. Every time is taken on the host clock, staging
-included.
+``dist.all_reduce``'s. Every time is taken on the host clock once the
+rank's card has finished its queued work (staging included under gloo;
+NCCL returns before the device is done).
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ from repro_torch.data.synthetic import CifarLike, TokenStream
 from repro_torch.engine.steps import (make_train_step, resolve_device,
                                       value_and_flat_grad)
 from repro_torch.kernels import build, ops
-from repro_torch.launch.mesh import init_data_group, local_rows
+from repro_torch.launch.mesh import check_cards, init_data_group, local_rows
 from repro_torch.models.registry import build_model
 from repro_torch.models.spec import flatten, views
 from repro_torch.optim import rescale_lr, sgd
@@ -81,8 +86,12 @@ class DPRun:
     once under each algorithm and held against ``dist.all_reduce``'s
     (``exchange_check``; it costs a forward and backward and one
     all-reduce of each algorithm).
-    ``device``: every rank's device ("cuda": the current card, which the
-    ranks share; they exchange over gloo).
+    ``device``: every rank's device: under gloo the ranks share it ("cuda":
+    the current card); under nccl it must be "cuda", and rank r runs on
+    card r (``rank_device``).
+    ``backend``: "gloo" (host memory; on the card each exchange is staged
+    through pinned host memory) or "nccl" (each rank's own card; as many
+    visible cards as ranks, or ``run`` raises before any rank starts).
     """
 
     cfg: ModelConfig | resnet110.ResNetConfig = resnet110.CONFIG
@@ -99,6 +108,7 @@ class DPRun:
     check_exchange: bool = True
     device: str = "cuda"
     timeout_s: float = 300.0
+    backend: str = "gloo"
 
     @property
     def lr(self) -> float:
@@ -130,6 +140,14 @@ class DPRun:
             shapes = {p: s.shape for p, s in flatten(model.param_specs()).items()}
             params = views(self.init.to(device, torch.float32).clone(), shapes)
         return {"params": params, "opt": sgd().init(params)}
+
+
+def rank_device(run: DPRun, rank: int) -> torch.device:
+    """The device rank ``rank`` of ``run`` trains on: its own card
+    ``cuda:<rank>`` under nccl, ``run.device`` (shared) under gloo."""
+    if run.backend == "nccl":
+        return torch.device("cuda", rank)
+    return torch.device(run.device)
 
 
 def digest(x: torch.Tensor) -> str:
@@ -185,10 +203,12 @@ def update_rel_err(params: torch.Tensor, p0: torch.Tensor, want: torch.Tensor) -
 def rank_spread(flat: torch.Tensor) -> float:
     """The largest difference between the ranks' values of one parameter:
     max over elements of (max over ranks - min over ranks), by a MAX and a
-    MIN all-reduce of each chunk's host copy."""
+    MIN all-reduce of each chunk's copy (on the host under gloo, on the
+    card under nccl)."""
     spread = 0.0
+    on_card = dist.get_backend() == "nccl"
     for a in range(0, flat.numel(), _CHUNK):
-        hi = flat[a:a + _CHUNK].cpu()
+        hi = flat[a:a + _CHUNK].clone() if on_card else flat[a:a + _CHUNK].cpu()
         lo = hi.clone()
         dist.all_reduce(hi, dist.ReduceOp.MAX)
         dist.all_reduce(lo, dist.ReduceOp.MIN)
@@ -202,7 +222,7 @@ def train(rank: int, run: DPRun, dev: torch.device) -> dict:
     batches = [{k: torch.as_tensor(v, device=dev) for k, v in
                 local_rows(b, rank, w).items()} for b in run.batches()]
     init = run.initial_state(dev)["params"]
-    out = {"rank": rank, "world": w, "device": str(dev),
+    out = {"rank": rank, "world": w, "device": str(dev), "card": dev.index,
            "device_name": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                            else "cpu"),
            "transport": transport(None, init.flat), "n_params": init.flat.numel(),
@@ -258,11 +278,12 @@ def join(rank: int, run: DPRun, init_method: str) -> torch.device:
     intra-op thread on a card, where the host only stages and adds the
     exchanged buffer; an equal share of the cores on the CPU: more
     threads than cores slowed a 4-rank ring exchange by several times),
-    then its place in the gloo group. Returns its device."""
-    device = torch.device(run.device)
+    then its place in the run's group, on ``rank_device``. Returns its
+    device."""
+    device = rank_device(run, rank)
     torch.set_num_threads(1 if device.type == "cuda"
                           else max(1, (os.cpu_count() or 1) // run.world))
-    return init_data_group(rank, run.world, init_method, "gloo", device,
+    return init_data_group(rank, run.world, init_method, run.backend, device,
                            run.timeout_s)
 
 
@@ -302,7 +323,8 @@ def run(spec: DPRun) -> list[dict]:
     """Train ``spec`` on ``spec.world`` ranks; one result dict per rank.
 
     The kernels are built here, before any rank starts, so that the ranks
-    only load them."""
+    only load them; an nccl run with fewer cards than ranks raises first."""
+    check_cards(spec.backend, spec.world, spec.device)
     if resolve_device(spec.device).type == "cuda":
         build.build_all()
     # every rank's collectives have waited at most timeout_s; the whole run
@@ -356,12 +378,14 @@ def summary(spec: DPRun, ranks: list[dict]) -> dict:
     over all ranks' steps, bytes sent per rank and step, whether every
     rank's final parameters carry rank 0's bits, launches per rank and
     step, and the largest first-step difference from ``dist.all_reduce``
-    (None when the exchange was not checked)."""
+    (None when the exchange was not checked); and each rank's card index
+    (None on the CPU)."""
     r0 = ranks[0]
     out = {"world": spec.world, "config": spec.cfg.name,
            "n_params": r0["n_params"],
            "global_batch": spec.m_per_worker * spec.world, "lr": spec.lr,
            "transport": r0["transport"], "device": r0["device_name"],
+           "cards": [r["card"] for r in ranks],
            "same_init": len({r["init_digest"] for r in ranks}) == 1,
            "algorithms": {}}
     for alg in spec.algorithms:

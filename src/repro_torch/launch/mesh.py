@@ -101,6 +101,21 @@ def join_fake_group(world: int) -> None:
                             world_size=world)
 
 
+def check_cards(backend: str, ranks: int, device="cuda") -> None:
+    """Raise unless ``ranks`` ranks of ``backend`` on this host can run:
+    nccl needs a card a rank (NCCL refuses two ranks on one card, but only
+    once the group starts), so ``device`` must be CUDA and at least
+    ``ranks`` cards visible. gloo takes any device, shared or not."""
+    if backend != "nccl":
+        return
+    if torch.device(device).type != "cuda":
+        raise ValueError(f"the nccl backend needs a CUDA device, got {device}")
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards < ranks:
+        raise ValueError(f"nccl runs one rank a card: {ranks} ranks need {ranks} "
+                         f"cards, {cards} visible")
+
+
 def init_data_group(rank: int, world: int, init_method: str, backend: str,
                     device="cuda", timeout_s: float = 300.0) -> torch.device:
     """Join rank ``rank`` of ``world`` to the default process group and
@@ -108,9 +123,13 @@ def init_data_group(rank: int, world: int, init_method: str, backend: str,
 
     ``init_method``: a rendezvous, such as ``file:///tmp/<fresh dir>/rdzv``
     or ``tcp://localhost:<port>``. ``backend``: "gloo" (host memory; a CUDA
-    buffer is staged through pinned host memory by ``collectives.dist``)
-    or "nccl". ``device`` is the card unless the caller asks for the CPU;
-    several ranks may share one card. A collective that waits longer than
+    buffer is staged through pinned host memory by ``collectives.dist``;
+    several ranks may share one card) or "nccl" (device memory, the rank's
+    own card: ``device`` names it, as ``cuda:<rank>`` does). Under nccl the
+    group is bound to that card (``device_id``), so NCCL starts its
+    communicator here, on every rank at once, and point-to-point rounds
+    reuse it instead of building one per pair. ``device`` is the card
+    unless the caller asks for the CPU. A collective that waits longer than
     ``timeout_s`` raises instead of hanging.
     """
     dev = resolve_device(device)
@@ -122,7 +141,8 @@ def init_data_group(rank: int, world: int, init_method: str, backend: str,
         torch.cuda.set_device(dev)
     dist.init_process_group(backend, init_method=init_method, world_size=world,
                             rank=rank,
-                            timeout=datetime.timedelta(seconds=timeout_s))
+                            timeout=datetime.timedelta(seconds=timeout_s),
+                            **({"device_id": dev} if backend == "nccl" else {}))
     return dev
 
 

@@ -17,19 +17,28 @@ over the whole global batch (the reference's path on one device).
 ``--workers`` stays the scheduler's allocation, independent of the number
 of ranks. The ranks join the group before ``main`` is called (as
 ``launch.explicit_allreduce.spawn`` starts them) or, when ``WORLD_SIZE``
-is set (torchrun), here through ``env://`` over gloo. Rank 0 alone logs
-and saves the checkpoint; every rank restores.
+is set (torchrun), here through ``env://`` over ``--backend``: gloo (the
+default; ranks may share a card) or nccl (one card a rank, the card
+torchrun's ``LOCAL_RANK`` names; more ranks than visible cards, or
+``--device cpu``, raise before the group starts). Rank 0 alone logs and
+saves the checkpoint; every rank restores. Rank 0 logs when every rank
+has joined a group this call started, and the checksum of the
+parameters beside each save and restore.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
       --smoke --steps 100 --workers 4
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch qwen2.5-3b --smoke --workers 4 --grad-exchange ring --device cpu
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \\
+      -m repro_torch.launch.train --arch qwen2.5-3b --workers 4 \\
+      --m-per-worker 2 --grad-exchange ring --backend nccl
 
 Runs on the GPU; ``--device cpu`` runs the plain versions on the CPU.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -41,24 +50,41 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.synthetic import TokenStream
 from repro_torch.engine.steps import (init_train_state, make_train_step,
                                       resolve_device)
-from repro_torch.launch.mesh import init_data_group, local_rows
+from repro_torch.launch.mesh import check_cards, init_data_group, local_rows
 from repro_torch.models.registry import build_model
 from repro_torch.optim import adamw, rescale_lr, warmup_cosine
 
 
-def _join(device) -> tuple[torch.device, bool]:
+def _join(device, backend: str = "gloo") -> tuple[torch.device, bool]:
     """The step's device, and whether this call started the process group:
     it does when none is initialised and ``WORLD_SIZE`` (torchrun's
     environment) names more than one rank, on the card ``LOCAL_RANK``
-    picks."""
-    dev = resolve_device(device)
+    picks, over ``backend``."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
+    if backend == "nccl" and torch.device(device).type != "cuda":
+        raise ValueError(f"--backend nccl needs the card, got --device {device}")
+    dev = resolve_device(device)
     if dist.is_initialized() or world <= 1:
         return dev, False
+    check_cards(backend, int(os.environ.get("LOCAL_WORLD_SIZE", world)), dev)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0"))
                            % torch.cuda.device_count())
-    return init_data_group(int(os.environ["RANK"]), world, "env://", "gloo", dev), True
+    return init_data_group(int(os.environ["RANK"]), world, "env://", backend, dev), True
+
+
+def checksum(flat: torch.Tensor) -> str:
+    """A checksum of a flat f32 buffer's bits, computed where it lies: the
+    sums of its words and of each word times its index plus one, both
+    modulo 2**64 (exact in any order), a chunk at a time."""
+    words = flat.detach().view(torch.int32)
+    s1 = s2 = 0
+    for a in range(0, words.numel(), 1 << 26):
+        w = words[a:a + (1 << 26)].long()
+        idx = torch.arange(a + 1, a + 1 + w.numel(), device=w.device)
+        s1 = (s1 + int(w.sum())) % 2**64
+        s2 = (s2 + int((w * idx).sum())) % 2**64
+    return f"{s1:016x}{s2:016x}"
 
 
 def main(argv=None):
@@ -67,6 +93,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers (a run whose "
+                         "checkpoints the disk holds only cut in depth)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--workers", type=int, default=1)
     ap.add_argument("--m-per-worker", type=int, default=8)
@@ -79,9 +108,16 @@ def main(argv=None):
                     choices=[None, "ring", "doubling_halving"])
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
+                    help="the process group's backend when torchrun starts the ranks")
     args = ap.parse_args(argv)
-    dev, own_group = _join(args.device)
+    dev, own_group = _join(args.device, args.backend)
     try:
+        if own_group:
+            dist.barrier()
+            if dist.get_rank() == 0:
+                print(f"process group ready: {args.backend}, "
+                      f"{dist.get_world_size()} ranks", flush=True)
         return _train(args, dev)
     finally:
         if own_group:
@@ -98,6 +134,8 @@ def _train(args, dev: torch.device):
             print(*a, **k)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     model = build_model(cfg, torch.float32)  # f32 masters, bf16 compute
     opt = adamw()
     data = TokenStream(cfg.vocab_size, args.seq, seed=0)
@@ -113,7 +151,8 @@ def _train(args, dev: torch.device):
     if store and args.resume and store.latest_step() is not None:
         state, meta, secs = store.restore(state)
         step0 = store.latest_step()
-        log(f"restored step {step0} in {secs:.2f}s (meta={meta})")
+        log(f"restored step {step0} in {secs:.2f}s (meta={meta}, params "
+            f"checksum {checksum(state['params'].flat)})", flush=True)
 
     t0 = time.perf_counter()
     first_loss = None
@@ -135,7 +174,8 @@ def _train(args, dev: torch.device):
         if rank == 0:
             secs = store.save(step0 + args.steps, state,
                               meta={"workers": args.workers})
-            log(f"checkpointed step {step0 + args.steps} in {secs:.2f}s")
+            log(f"checkpointed step {step0 + args.steps} in {secs:.2f}s (params "
+                f"checksum {checksum(state['params'].flat)})", flush=True)
         if world > 1:  # no rank returns before the checkpoint is written
             dist.barrier()
     return first_loss, float(loss)

@@ -15,7 +15,7 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import implicit_replication
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -275,6 +275,23 @@ def sinusoidal(positions, d_model: int):
 
 
 # ----------------------------------------------------------- embeddings ----
+def whole_dim(t, dim: int):
+    """``t`` with dim ``dim`` whole on every rank: a DTensor sharded on it
+    is gathered over that dim, anything else is returned as it is. An
+    einsum over (heads, head_dim) flattens the pair, and torch 2.11's
+    DTensor cannot flatten two dims when the inner one is sharded, which
+    it is when the rules shard head_dim (their fallback when the model
+    axis does not divide the heads)."""
+    if not isinstance(t, DTensor):
+        return t
+    dim %= t.ndim
+    place = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+             for p in t.placements]
+    if place == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, place)
+
+
 def index_select(t, dim: int, index):
     """``t.index_select(dim, index)``; a DTensor runs on its local shards
     with ``dim`` whole (its backward then adds into local shards: DTensor

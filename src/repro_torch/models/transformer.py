@@ -86,9 +86,10 @@ def attention(cfg: ModelConfig, p, x, positions, sh, *,
     """
     dt = x.dtype
     kv_src = x if memory is None else memory
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", kv_src, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", kv_src, p["wv"].to(dt))
+    wq, wk, wv = (L.whole_dim(p[w].to(dt), 2) for w in ("wq", "wk", "wv"))
+    q = torch.einsum("bsd,dhk->bshk", x, wq)
+    k = torch.einsum("bsd,dhk->bshk", kv_src, wk)
+    v = torch.einsum("bsd,dhk->bshk", kv_src, wv)
     if "bq" in p:
         q = q + p["bq"].to(dt)
         k = k + p["bk"].to(dt)
@@ -118,7 +119,8 @@ def attention(cfg: ModelConfig, p, x, positions, sh, *,
         mask = (torch.arange(H_pad, device=x.device) < H_real).to(dt)
         attn = attn * mask[None, None, :, None]
     attn = sh(attn, "batch", "seq", "heads", "head_dim")
-    return torch.einsum("bshk,hkd->bsd", attn, p["wo"].to(dt))
+    return torch.einsum("bshk,hkd->bsd", L.whole_dim(attn, 3),
+                        L.whole_dim(p["wo"].to(dt), 1))
 
 
 def _mrope_sections(cfg: ModelConfig) -> tuple[int, int, int] | None:

@@ -126,6 +126,27 @@ def test_chip_train_lr_imports_without_jax_or_repro():
     assert _foreign(loaded) == []
 
 
+def test_chip_nccl_imports_without_jax_or_repro():
+    loaded = _loaded_after(
+        "import sys, importlib.util\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"spec = importlib.util.spec_from_file_location('chip_nccl', {str(ROOT / 'chip_nccl.py')!r})\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))")
+    assert {"chip_smoke", "repro_torch.launch.explicit_allreduce",
+            "repro_torch.collectives.dist"} <= set(loaded)
+    assert _foreign(loaded) == []
+
+
+def test_chip_nccl_fails_without_four_gpus():
+    """Fewer than four cards (here none): exit non-zero, print nothing."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_nccl.py")], env=env,
+                         cwd=ROOT, capture_output=True, text=True)
+    assert out.returncode != 0
+    assert out.stdout == ""
+    assert "needs 4 CUDA devices" in out.stderr
+
+
 def test_chip_train_lr_fails_without_a_gpu():
     """No CUDA device: the LR sweep exits non-zero and prints nothing."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")

@@ -23,20 +23,19 @@ import torch
 
 from repro_torch.launch.explicit_allreduce import spawn
 from repro_torch.sharding.rules import default_rules
-from _torch_sharded_rank import config, sharded_rank
+from _torch_sharded_rank import CASES, TOL, config, sharded_rank
 
 WORLD = 4
 TIMEOUT_S = 240
-CASES = [("prefill", "qwen2.5-3b", None), ("prefill", "qwen3-moe-30b-a3b", None),
-         ("prefill", "whisper-base", None), ("prefill", "qwen2.5-3b", 5),
-         ("grad", "qwen2.5-3b", None), ("grad", "qwen2.5-3b", 5),
-         ("sgd", "qwen2.5-3b", None)]
-TOL = 1e-5
 
 
 @pytest.fixture(scope="module")
 def ranks():
-    return spawn(sharded_rank, WORLD, (WORLD, CASES), TIMEOUT_S)
+    out = spawn(sharded_rank, WORLD, (WORLD, CASES, "gloo"), TIMEOUT_S)
+    for r in out:
+        for case in CASES:
+            assert "error" not in r[case], r[case]["error"]
+    return out
 
 
 def _rel_err(got, want) -> float:
