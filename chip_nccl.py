@@ -508,8 +508,10 @@ def long_update_check(n: int) -> dict:
 
 def lm_dp_phase(smi: list[str]) -> dict:
     t0 = time.perf_counter()
+    # all three exchanges (the one-card smoke runs ring alone)
     spec = dataclasses.replace(cs.LM_DP, cfg=get_config(cs.ARCH), backend=BACKEND,
-                               device=DEVICE, timeout_s=LM_DP_TIMEOUT_S)
+                               device=DEVICE, timeout_s=LM_DP_TIMEOUT_S,
+                               algorithms=cs.DP.algorithms)
     n = spec.cfg.param_count()
     room = host_room(Path(tempfile.gettempdir()))
     print(f"lm_dp: {n} parameters at {spec.cfg.n_layers} layers; host "

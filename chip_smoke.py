@@ -15,13 +15,17 @@
    its route edges and on unaligned views, printing the route and design
    the built library reports for each main-path width; swa_attention also
    with queries and keys of different lengths and queries at an offset,
-   at whisper-base's encoder, cross-attention and decode shapes), and times
-   kernel, plain version and the PyTorch library call that computes the
-   same function (yardstick only; for the [G, D] route two calls,
-   F.rms_norm then the product with 1 + w); and holds the gradients of
+   at whisper-base's encoder, cross-attention and decode shapes, at every
+   main path's head dim, and at h2o-danube-1.8b's [32, 8192, 80] under its
+   window of 4,096), prints each swa_attention instantiation's registers
+   and local bytes, and times kernel, plain version and the PyTorch
+   library call that computes the same function (yardstick only; for the
+   [G, D] route two calls, F.rms_norm then the product with 1 + w); and
+   holds the gradients of
    the rmsnorm (w [D] and [G, D]) and swa_attention autograd Functions
-   (kernel forward, explicit backward formula) against torch.autograd of
-   the plain versions;
+   (kernel forward, explicit backward formula; swa_attention also with
+   Sq != Sk and a query offset) against torch.autograd of the plain
+   versions;
 4. serve phase: qwen2.5-3b at full published width, random weights from a
    seeded CUDA generator, serve(batch=4, prompt_len=128, new_tokens=32);
    the rmsnorm kernel must run exactly 73 times per decode step;
@@ -46,6 +50,19 @@
    weights and inputs without M-RoPE as a control that must fail that
    contract, a profile of the prefill, and the serve of phase 4 (57
    rmsnorm launches a decode step);
+7b. dense phase: gemma-2b (head dim 256, MQA, GeGLU, tied embeddings),
+   h2o-danube-1.8b (head dim 80, a native window of 4,096) and
+   qwen2.5-14b (48 layers, d_model 5,120, 29.5 GB of bf16 weights) at full
+   published width and depth, one at a time: the serve of phase 4, a
+   profile with the prefill's peak memory, the prefill of phase 5 (2 x
+   layers + 1 rmsnorm and layers swa_attention launches) held to the plain
+   versions and decode against it over CONTROL_POSITIONS positions with
+   both faulty-cache controls, gated in bf16 for gemma and with f32
+   activations for danube and qwen2.5-14b (DENSE_GATED: their bf16
+   readings are rounding, reported); for danube also a [1, 8192] prefill
+   under its window held to the plain versions, and decode against
+   prefill with the window cut to 64 over [2, 256] tokens, with both
+   controls;
 8. ssm phase: mamba2-780m at full published width and depth (48 layers,
    48 heads of 64, state 128, 857 M parameters, random from a seeded CUDA
    generator): the serve of phase 4 (97 rmsnorm launches a decode step,
@@ -82,7 +99,11 @@
    controls that must fail that gate (the KV cache zeroed; the encoder's
    output zeroed), a profile of a prefill and a decode step, and the serve
    of phase 4 on a cache whose encoder output stays at zeros, as the
-   reference serves it;
+   reference serves it; then training with f32 masters and AdamW: one
+   step's loss and flat gradient at the initial weights through the
+   kernels against the plain versions under the LM trainer's limits, with
+   two controls that must fail them, and 5 steps through make_train_step
+   (finite losses, 18 swa_attention launches a step, no rmsnorm);
 11. train phase: the elastic trainer on ResNet-110 at its full published
    size (random weights from a seeded CUDA generator, CifarLike data of
    CIFAR-10's 50,000 images, 128 images per worker): the paper's Table 2
@@ -140,17 +161,16 @@
 15. lm_dp phase: the LM job under the paper's exchange, qwen2.5-3b at full
    width cut to 2 layers (776 M f32 parameters), 4 ranks sharing the card
    over gloo as in phase 14, 2 rows of 128 tokens each, momentum SGD at a
-   constant LR of 0.05, 2 steps under each of psum, ring and
-   doubling_halving: the same gates (each rank measures its update against
-   the one-process step's, saved to a file, and psum's ranks their spread
-   by two all-reduces: a full-width LM's parameters are not shipped back),
-   5 rmsnorm, 2 swa_attention and 1 fused_sgd_update launches per rank and
-   step, and the bytes each rank sends per all-reduce (4.66 GB for the
-   ring).
+   constant LR of 0.05, one step under ring and one under each faulty
+   exchange: the same gates (each rank measures its update against the
+   one-process step's, saved to a file: a full-width LM's parameters are
+   not shipped back), 5 rmsnorm, 2 swa_attention and 1 fused_sgd_update
+   launches per rank and step, and the bytes each rank sends per
+   all-reduce (4.66 GB for the ring).
 
 Launch counts are set to 0 just before each serve, each counted prefill,
-the audio decode, the training runs, the sched phase's two segments and
-the LM step and training runs and read just after; each dp and lm_dp rank
+the audio decode, the training runs and step checks, the sched phase's
+two segments and the LM step and training runs and read just after; each dp and lm_dp rank
 does the same around its steps under each algorithm. Any failed check
 raises, and the script exits non-zero.
 The last two lines are the kernels' JSON line and the device line. It
@@ -244,6 +264,10 @@ SWA_CROSS_SWEEP = [(32, 1500, 1500, 64, False, None, 0),
                    (32, 1, 1500, 64, False, None, 0),
                    (4, 100, 1124, 128, True, 300, 1024),
                    (2, 20, 84, 64, True, None, 64)]
+# The backward formula with Sq != Sk and an offset (whisper trains through
+# it): whisper's cross prefill, and the windowed causal continuation at an
+# offset of 1,024
+SWA_CROSS_BACKWARD = (SWA_CROSS_SWEEP[1], SWA_CROSS_SWEEP[3])
 RMS_SWEEP = [(4, 128, 512), (1, 7, 64), (300, 1024), (2, 2048), (3, 100)]
 # rmsnorm's route edges (csrc/rmsnorm.cu), in rows of 16-byte vectors:
 # 32 | 33 (small | wide: bf16 d = 256 | 264, f32 128 | 132), 128 | 129 (a
@@ -481,17 +505,84 @@ AUDIO_PARAMS = 97_241_088  # param_count()
 AUDIO_PREFILL = (4, 448)
 AUDIO_FRAMES_SCALE = 0.1
 AUDIO_CONTROL_FAULTS = ("no_cache", "enc_zeroed")
+# whisper-base trained at full width: f32 masters, bf16 compute, AdamW, on
+# the AUDIO_PREFILL batch with labels and frames at AUDIO_FRAMES_SCALE.
+# One step at the initial weights through the kernels against the plain
+# versions under the LM trainer's limits (LM_STEP_LIMITS) and its two
+# controls (labels shifted; the last decoder layer's cross-attention
+# output projection zeroed), then AUDIO_TRAIN_STEPS steps through
+# make_train_step on the LM trainer's schedule (18 swa_attention launches a
+# step, no rmsnorm). Its attentions' key biases have a gradient of zero in
+# exact arithmetic (zero_gradient_leaves), so their rounding is kept out
+# of the worst-leaf reading, and their norm must stay below
+# AUDIO_ZERO_GRAD_LIMIT of the whole gradient's (1.7e-6 on the CPU at the
+# smoke config).
+AUDIO_ZEROED_LEAF = "decoder/xattn/wo"
+AUDIO_TRAIN_STEPS = 5
+AUDIO_ZERO_GRAD_LIMIT = 1e-3
+# The dense decoders at full published width and depth (dense phase), each
+# served as the qwen2.5-3b cell is, its [2, 1024] prefill held to the plain
+# versions under the bf16 contract and decode against prefill over
+# CONTROL_POSITIONS positions with both faulty-cache controls: gemma-2b
+# (arXiv:2403.08295: head dim 256, MQA, GeGLU, tied embeddings, sqrt(d)
+# embedding scale, vocab 256,000), h2o-danube-1.8b (arXiv:2401.16818: head
+# dim 80, GQA 32/8, a native window of 4,096) and qwen2.5-14b (48 layers,
+# d_model 5,120, GQA 40/8 with QKV bias, 29.5 GB of bf16 weights; served
+# only: its f32 masters and AdamW state, 235 GB, do not fit one card).
+# Nothing cut.
+DENSE_PARAMS = {"gemma-2b": 2_506_172_416, "h2o-danube-1.8b": 1_831_201_280,
+                "qwen2.5-14b": 14_770_033_664}  # param_count() of each
+# Which run of each dense config the gates read, as SSM_GATED does for
+# mamba2. On an H100 (NVIDIA H100 80GB HBM3, 700 W) the [2, 1024] prefill
+# through the kernels against the plain versions read argmax agreement
+# 0.926 (danube) and 0.886 (qwen2.5-14b) in bf16; held to the same weights
+# with f32 activations through the plain versions, the kernels' route read
+# 0.917 and 0.889 and the plain route's own bf16 run 0.912 and 0.884: the
+# kernels' route is as far from f32 as the plain route, and the bf16
+# readings measure rounding (the near-ties of random logits), not the
+# kernels. With f32 activations kernels and plain versions agreed at 1.0
+# (rel err 7.6e-6 and 1.5e-5). bf16 attention outputs were as accurate as
+# the plain version's rounded to bf16 at D = 80, 128 and 256 (relative L2
+# 1.6e-3 against f64, equal to 6 digits). So danube and qwen2.5-14b are
+# gated with f32 activations and f32 caches (their bf16 runs, the path a
+# user serves, have their launches gated and their agreement reported),
+# gemma-2b in bf16.
+DENSE_GATED = {"gemma-2b": ("bf16",), "h2o-danube-1.8b": ("f32",),
+               "qwen2.5-14b": ("f32",)}
+# gemma-2b ties its unembedding to the embedding, which it scales by
+# sqrt(d_model): at the reference's init that term dominates the residual
+# stream, so the logits' argmax is the input token at every position (1.0
+# on the CPU at full width cut to 2 and 6 layers, for the sound decode and
+# both faulty caches alike) and the argmax half of the gates cannot tell a
+# fault. For such a config (named with a prefix of OWN_TOKEN_ARGMAX, as
+# models.transformer picks the scale) the share is gated at
+# OWN_TOKEN_SHARE_MIN and the faulty controls must fail the relative-error
+# half; the argmax readings are reported.
+OWN_TOKEN_ARGMAX = ("gemma",)
+OWN_TOKEN_SHARE_MIN = 0.99
+# danube's window binds only past 4,096 tokens. A [1, 8192] prefill under
+# the native window is held to the plain versions under the same contract,
+# in the runs DENSE_GATED names (the plain attention's f32 scores are
+# [32, 8192, 8192], 8.6 GB, a layer at a time). Decode past the window
+# would take over 4,000 host-bound steps, so decode is held to prefill
+# with the window cut to DANUBE_CUT_WINDOW over DANUBE_CUT_SHAPE tokens,
+# the same full-width weights; decode without the cut window against that
+# prefill is reported.
+DANUBE_ARCH = "h2o-danube-1.8b"
+DANUBE_LONG = (1, 8192)
+DANUBE_CUT_WINDOW, DANUBE_CUT_SHAPE = 64, (2, 256)
 # The LM job under the paper's exchange (lm_dp phase): qwen2.5-3b at full
 # published width cut from 36 layers to LM_DP_LAYERS (four full-width ranks
 # of 36 layers do not share one 80 GB card: one alone peaks at 67.8 GB in
 # the lm_train phase), 776,485,888 f32 parameters, as 4 spawned ranks
 # sharing the card over gloo, 2 rows of 128 tokens each (global batch 8 x
 # 128), momentum SGD at a constant LR of 0.05 (the reference example's),
-# 2 steps under each of psum, ring and doubling_halving, each step's
-# exchange timed (the untimed first-step check has already set up the
-# pinned buffers and gloo's pairs), so 2 warm exchanges an algorithm and
-# rank. Per rank and step: 5 rmsnorm (2 a layer and the final norm), 2
-# swa_attention and 1 fused_sgd_update launches, the last at
+# one step under ring, its exchange timed (the untimed first-step check
+# has already set up the pinned buffers and gloo's pairs). psum and
+# halving-doubling on the LM job run in chip_nccl.py's lm_dp phase at 36
+# layers over NCCL, and on ResNet-110 in the dp phase. Per rank and step:
+# 5 rmsnorm (2 a layer and the final norm), 2 swa_attention and 1
+# fused_sgd_update launches, the last at
 # n = LM_DP_PARAMS, which the kernel phase holds against the plain update
 # (the one-process reference launches the same kernel). The
 # faulty-exchange controls run 1 step each, with no first-step check.
@@ -499,9 +590,10 @@ LM_DP_LAYERS = 2
 LM_DP_PARAMS = 776_485_888
 LM_DP = dp.DPRun(cfg=dataclasses.replace(get_config(ARCH), n_layers=LM_DP_LAYERS),
                  world=4, steps=1, m_per_worker=2, seq=128, base_lr_1w=0.05 / 4,
-                 timeout_s=240)
-# One timed step under each exchange (two until the shard phase came: the
-# smoke keeps under its time limit). Each rank's update p1 - p0 against
+                 algorithms=("ring",), timeout_s=240)
+# One timed step under ring (two under each exchange until the shard phase
+# came, one under each until the dense phase came: the smoke keeps under
+# its time limit). Each rank's update p1 - p0 against
 # the one-process step at the global
 # batch of 8 x 128 tokens (same init, batches and LR): relative L2 error
 # below LM_DP_UPDATE_LIMIT. Set before the first run from this reasoning.
@@ -688,8 +780,9 @@ def backward_compare(gen, call, case, dtype, grouped: bool = False) -> float:
     require grad (the autograd Function: kernel forward, explicit backward
     formula) against torch.autograd of the plain version, for a random
     cotangent; ``case`` is rmsnorm's shape (``grouped``: with a gain per
-    group, w [G, D] over its last two dims) or swa_attention's (bh, s, d,
-    window, causal)."""
+    group, w [G, D] over its last two dims) or swa_attention's: (bh, s, d,
+    window, causal) for self-attention, or a ``SWA_CROSS_SWEEP`` case
+    (bh, sq, sk, d, causal, window, q_offset)."""
     if call == "rmsnorm":
         args = [randn(gen, case, dtype).requires_grad_(),
                 randn(gen, case[-2:] if grouped else (case[-1],), torch.float32,
@@ -698,10 +791,15 @@ def backward_compare(gen, call, case, dtype, grouped: bool = False) -> float:
         plain = ref.rmsnorm_ref(*args)
         fn_name = "_RMSNormBackward"
     else:
-        bh, s_, d, window, causal = case
-        args = [randn(gen, (bh, s_, d), dtype).requires_grad_() for _ in range(3)]
-        out = ops.swa_attention(*args, causal=causal, window=window)
-        plain = ref.swa_attention_ref(*args, causal=causal, window=window)
+        if len(case) == 5:
+            bh, sq, d, window, causal = case
+            sk, q_offset = sq, 0
+        else:
+            bh, sq, sk, d, causal, window, q_offset = case
+        args = [randn(gen, (bh, n, d), dtype).requires_grad_() for n in (sq, sk, sk)]
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        out = ops.swa_attention(*args, **kw)
+        plain = ref.swa_attention_ref(*args, **kw)
         fn_name = "_SWAAttentionBackward"
     check(type(out.grad_fn).__name__ == fn_name, f"{call}: {out.grad_fn} is not the Function")
     cot = randn(gen, tuple(out.shape), dtype)
@@ -786,30 +884,37 @@ def rms_grouped_timing(gen, shape, dtype) -> dict:
     }
 
 
-def swa_timing(gen, bh, s, d, dtype, heads: int, sk=None, causal: bool = True) -> dict:
-    """Causal self-attention over [bh, s, d], or with ``sk`` and
+def swa_timing(gen, bh, s, d, dtype, heads: int, sk=None, causal: bool = True,
+               window: int | None = None) -> dict:
+    """Causal self-attention over [bh, s, d], within ``window`` keys when
+    given (SDPA then takes the band as a boolean mask), or with ``sk`` and
     ``causal=False`` queries [bh, s, d] against keys [bh, sk, d] (whisper's
     encoder, cross-attention and decode step)."""
     elt = torch.tensor([], dtype=dtype).element_size()
     sk = s if sk is None else sk
     # q and o, k and v; q.k and p.v over the (query, key) pairs this work
-    # needs: the causal band or all
-    n_ops, nbytes = ops.swa_attention_cost(bh, s, sk, d, elt, causal=causal, window=None)
+    # needs: the causal band, the window's band, or all
+    n_ops, nbytes = ops.swa_attention_cost(bh, s, sk, d, elt, causal=causal, window=window)
     nbytes = int(nbytes)
     sets = copies(lambda: (randn(gen, (bh, s, d), dtype),
                            *(randn(gen, (bh, sk, d), dtype) for _ in range(2))), nbytes)
     b = bh // heads
+    band = None if window is None else ref.swa_mask(s, sk, DEVICE, causal=causal,
+                                                    window=window)
 
     def library(q, k, v):
         return F.scaled_dot_product_attention(
             q.view(b, heads, s, d), k.view(b, heads, sk, d),
-            v.view(b, heads, sk, d), is_causal=causal)
+            v.view(b, heads, sk, d), attn_mask=band, is_causal=causal and band is None)
 
-    out = timings(kernel=lambda q, k, v: swa_kernel.swa_attention(q, k, v, causal=causal),
-                  plain=lambda q, k, v: ref.swa_attention_ref(q, k, v, causal=causal),
+    kw = dict(causal=causal, window=window)
+    out = timings(kernel=lambda q, k, v: swa_kernel.swa_attention(q, k, v, **kw),
+                  plain=lambda q, k, v: ref.swa_attention_ref(q, k, v, **kw),
                   library=library, sets=sets)
     return {
         "shape": [bh, s, d] if sk == s else [bh, s, sk, d], "causal": causal,
+        **({"window": window, "library_call": "SDPA with a boolean band mask"}
+           if window is not None else {}),
         "dtype": str(dtype).removeprefix("torch."), **out,
         # SDPA's backend for this call: the kernels it launched
         "library_kernels": [n for n, e in out["library_device_events"].items()
@@ -862,12 +967,25 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
     rms_err = max(rms_compare(gen, (SERVE["batch"], cfg.d_model), bf16),
                   rms_compare(gen, (b * s, cfg.d_model), bf16))
     swa_err = swa_compare(gen, b * cfg.n_heads, s, cfg.d_head, None, True, bf16)
-    for arch in (MOE_ARCH, VLM_ARCH):  # the MoE and VLM paths' shapes
+    # the MoE, VLM and dense paths' shapes (gemma's D = 256 after MQA's
+    # repeat, danube's D = 80, qwen2.5-14b's d = 5,120), and the f32 route
+    # where a dense config's gated run takes it
+    for arch in (MOE_ARCH, VLM_ARCH, *DENSE_PARAMS):
         c = get_config(arch)
         rms_err = max(rms_err, rms_compare(gen, (SERVE["batch"], c.d_model), bf16),
                       rms_compare(gen, (b * s, c.d_model), bf16))
         swa_err = max(swa_err, swa_compare(gen, b * c.n_heads, s, c.d_head, None,
                                            True, bf16))
+        if "f32" in DENSE_GATED.get(arch, ()):
+            swa_compare(gen, b * c.n_heads, s, c.d_head, None, True, f32)
+    # danube's [1, 8192] prefill under its native window in both routes
+    # (the plain version's f32 scores take 8.6 GB; the card is still
+    # nearly empty)
+    gemma, danube = get_config("gemma-2b"), get_config(DANUBE_ARCH)
+    long_case = (DANUBE_LONG[0] * danube.n_heads, DANUBE_LONG[1], danube.d_head,
+                 danube.sliding_window)
+    swa_err = max(swa_err, swa_compare(gen, *long_case, True, bf16))
+    swa_compare(gen, *long_case, True, f32)
     # the gated norm's [G, D] route (a gain per head) at mamba2-780m's and
     # jamba's prefill and decode shapes of y [B, S, H, P]
     gnorm_shapes = {}
@@ -878,11 +996,12 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
         for shape in gnorm_shapes[arch]:
             rms_compare(gen, shape, f32, grouped=True)
             rms_err = max(rms_err, rms_compare(gen, shape, bf16, grouped=True))
-    # every [D] width of the main paths (mamba2 and qwen2-vl 1536, qwen2.5
-    # and qwen3-moe 2048, jamba 4096) at decode and prefill rows, in bf16
-    # and f32 (the f32-activation runs), and the route each width takes
+    # every [D] width of the main paths (mamba2 and qwen2-vl 1536, qwen2.5,
+    # qwen3-moe and gemma 2048, danube 2560, jamba 4096, qwen2.5-14b 5120) at
+    # decode and prefill rows, in bf16 and f32 (the f32-activation runs),
+    # and the route each width takes
     widths = sorted({get_config(a).d_model for a in (ARCH, MOE_ARCH, VLM_ARCH, SSM_ARCH,
-                                                     HYBRID_ARCH)})
+                                                     HYBRID_ARCH, *DENSE_PARAMS)})
     for d in widths:
         for rows in (SERVE["batch"], b * s):
             rms_compare(gen, (rows, d), f32)
@@ -891,6 +1010,14 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
                   for d in (*widths, gnorm_shapes[SSM_ARCH][0][-1]) for dt in (bf16, f32)}
     for key, route in rms_routes.items():
         print(f"rmsnorm design at d = {key}: {json.dumps(route)}", flush=True)
+    # each swa_attention instantiation as the built library reports it
+    # (registers, local bytes: a spill shows there)
+    swa_designs = {f"{d} {str(dt).removeprefix('torch.')}": swa_kernel.design(dt, d)
+                   for d in swa_kernel.HEAD_DIMS for dt in (bf16, f32)}
+    for key, design in swa_designs.items():
+        print(f"swa_attention design at D = {key}: {json.dumps(design)}", flush=True)
+    print("swa_attention instantiations with local memory (spills): "
+          + json.dumps({k: d for k, d in swa_designs.items() if d["local_bytes"]}), flush=True)
     swa_compare(gen, b * cfg.n_heads, s, cfg.d_head, None, True, f32)
     for dtype in (f32, bf16):
         for shape in RMS_SWEEP:
@@ -934,18 +1061,25 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
         "swa_attention": {str(dt).removeprefix("torch."): max(
             backward_compare(gen, "swa_attention", case, dt)
             for case in ((bh, LM["seq"], cfg.d_head, None, True), SWA_SWEEP[2]))
+            for dt in (f32, bf16)},
+        # Sq != Sk and a query offset: whisper's training path
+        "swa_attention_cross": {str(dt).removeprefix("torch."): max(
+            backward_compare(gen, "swa_attention", case, dt) for case in SWA_CROSS_BACKWARD)
             for dt in (f32, bf16)}}
     torch.cuda.synchronize()
-    n_rms = 6 + 8 + 4 * len(widths) + 2 * (len(RMS_SWEEP) + len(RMS_EDGES) + len(RMS_UNALIGNED))
+    n_f32 = sum("f32" in gated for gated in DENSE_GATED.values())
+    n_rms = (2 * (3 + len(DENSE_PARAMS)) + 8 + 4 * len(widths)
+             + 2 * (len(RMS_SWEEP) + len(RMS_EDGES) + len(RMS_UNALIGNED)))
     print(f"kernel phase: the three kernels agree with their plain versions at "
           f"{n_rms} rmsnorm (8 with a [G, D] weight; routes at the edges "
           f"{json.dumps(edge_routes)}), "
-          f"{(len(SWA_SWEEP) + len(SWA_CROSS_SWEEP)) * 2 + 4} swa_attention "
+          f"{(len(SWA_SWEEP) + len(SWA_CROSS_SWEEP)) * 2 + 6 + len(DENSE_PARAMS) + n_f32} "
+          f"swa_attention "
           f"({len(SWA_CROSS_SWEEP) * 2} of them with Sq != Sk or an offset) and "
           f"{4 + 2 * len(SGD_SWEEP) + 3} fused_sgd_update cases (4 at n = "
           f"{n_resnet} and {LM_DP_PARAMS}); the rmsnorm "
           f"and swa_attention Functions' gradients agree with autograd of the "
-          f"plain versions at 6 and 4 cases "
+          f"plain versions at 6 and {4 + 2 * len(SWA_CROSS_BACKWARD)} cases "
           f"(max abs err {json.dumps(backward)})", flush=True)
     return {
         "rmsnorm": {"max_abs_err": rms_err,
@@ -965,12 +1099,22 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
                         gen, gnorm_shapes[SSM_ARCH][0], f32)}}},
         "swa_attention": {"max_abs_err": swa_err,
                           "backward_max_abs_err": backward["swa_attention"],
+                          "backward_cross_max_abs_err": backward["swa_attention_cross"],
+                          "design_by_head_dim": swa_designs,
                           "prefill": swa_timing(gen, b * cfg.n_heads, s,
                                                 cfg.d_head, bf16, cfg.n_heads),
                           "prefill_f32": swa_timing(gen, b * cfg.n_heads, s,
                                                     cfg.d_head, f32, cfg.n_heads),
                           # whisper-base's three attention shapes in bf16
-                          "audio": audio_swa_timings(gen)},
+                          "audio": audio_swa_timings(gen),
+                          # gemma-2b's [2, 1024] prefill (D = 256) and
+                          # danube's [1, 8192] one under its window
+                          "dense": {
+                              gemma.name: swa_timing(gen, b * gemma.n_heads, s,
+                                                     gemma.d_head, bf16, gemma.n_heads),
+                              DANUBE_ARCH: swa_timing(
+                                  gen, long_case[0], long_case[1], long_case[2], bf16,
+                                  danube.n_heads, window=long_case[3])}},
         "fused_sgd_update": {"max_abs_err": sgd_err,
                              "train": sgd_timing(gen, n_resnet),
                              "lm_dp": sgd_timing(gen, LM_DP_PARAMS)},
@@ -1027,7 +1171,7 @@ ZEROED = {"no_cache": lambda path: path != "enc",
 
 def decode_vs_prefill(decode, model, params, tokens, logits, n: int,
                       fault: str | None = None, cache_dtype=torch.bfloat16,
-                      enc: torch.Tensor | None = None) -> dict:
+                      enc: torch.Tensor | None = None, controls: tuple[str, ...] = ()) -> dict:
     """Step the decoder over the first n prompt tokens and compare each
     step's logits with the prefill's at that position. ``enc``: whisper's
     encoder output, written into the cache's ``enc`` before the first step.
@@ -1040,37 +1184,66 @@ def decode_vs_prefill(decode, model, params, tokens, logits, n: int,
     and KV caches (the recurrence loses its history beyond the conv's last
     K - 1 inputs), "enc_zeroed" zeroes whisper's ``enc`` (the
     cross-attention reads no audio) and keeps the KV cache.
+
+    ``controls``: faults decoded in the same steps, each on its own copy of
+    the batch's rows, its fault injected into those rows only (a decode
+    step is host-bound: three times the rows cost about what one does);
+    their readings over the first CONTROL_POSITIONS positions are returned
+    under "controls".
     """
-    b = tokens.shape[0]
-    cache = pspec.init_params(None, model.cache_specs(
-        InputShape("d", tokens.shape[1], b, "decode"), cache_dtype), DEVICE)
+    b, groups = tokens.shape[0], (fault, *controls)
+    g = len(groups)
+    specs = model.cache_specs(InputShape("d", tokens.shape[1], g * b, "decode"), cache_dtype)
+    cache = pspec.init_params(None, specs, DEVICE)
     if enc is not None:
-        cache["enc"].copy_(enc)
+        cache["enc"].copy_(enc.repeat(g, 1, 1))
+    # the cache rows each group's fault zeroes before every step
+    zeroed = [c.narrow(spec.axes.index("batch"), i * b, b)
+              for i, f in enumerate(groups) if f in ZEROED
+              for (path, c), spec in zip(pspec.flatten(cache).items(),
+                                         pspec.flatten(specs).values())
+              if ZEROED[f](path)]
+    rows = tokens.repeat(g, 1)
     argmax, diff, finite = [], [], []
     for t in range(n):
-        pos = max(t - 1, 0) if fault == "pos_lag" else t
-        for path, c in pspec.flatten(cache).items():
-            if fault in ZEROED and ZEROED[fault](path):
-                c.zero_()
+        for c in zeroed:
+            c.zero_()
+        pos = [max(t - 1, 0) if f == "pos_lag" else t for f in groups for _ in range(b)]
         step, cache = decode(params, cache, {
-            "tokens": tokens[:, t:t + 1],
-            "pos": torch.full((b,), pos, dtype=torch.int32, device=DEVICE)})
-        argmax.append(step[:, 0].argmax(-1))
-        diff.append((step[:, 0] - logits[:, t]).abs().amax(-1))
-        finite.append(torch.isfinite(step).all())
-    diff = torch.stack(diff, 1)                                # [b, n]
-    agree = torch.stack(argmax, 1) == logits[:, :n].argmax(-1)
+            "tokens": rows[:, t:t + 1],
+            "pos": torch.tensor(pos, dtype=torch.int32, device=DEVICE)})
+        by_group = step[:, 0].view(g, b, -1)
+        argmax.append(by_group.argmax(-1))
+        diff.append((by_group - logits[None, :, t]).abs().amax(-1))
+        finite.append(torch.isfinite(by_group).flatten(1).all(-1))
+    diff = torch.stack(diff, -1)                               # [g, b, n]
+    agree = torch.stack(argmax, -1) == logits[None, :, :n].argmax(-1)
+    finite = torch.stack(finite, -1).all(-1).tolist()          # [g]
 
-    def stats(m: int) -> dict:
-        """Over the first m positions."""
+    def stats(i: int, m: int) -> dict:
+        """Group i over the first m positions."""
         scale = float(logits[:, :m].abs().max()) + 1e-6
-        return {"positions": m, "rel_err_last": float(diff[:, m - 1].max()) / scale,
-                "rel_err_all": float(diff[:, :m].max()) / scale,
-                "argmax_agree": float(agree[:, :m].float().mean())}
+        return {"positions": m, "rel_err_last": float(diff[i, :, m - 1].max()) / scale,
+                "rel_err_all": float(diff[i, :, :m].max()) / scale,
+                "argmax_agree": float(agree[i, :, :m].float().mean())}
 
-    head = {"head": stats(CONTROL_POSITIONS)} if n > CONTROL_POSITIONS else {}
-    return {**stats(n), **head, "finite": bool(torch.stack(finite).all()),
-            "last_shape": list(step.shape)}
+    shape = [b, *step.shape[1:]]
+    head = {"head": stats(0, CONTROL_POSITIONS)} if n > CONTROL_POSITIONS else {}
+    out = {**stats(0, n), **head, "finite": finite[0], "last_shape": shape}
+    if controls:
+        out["controls"] = {f: {**stats(i, min(n, CONTROL_POSITIONS)), "finite": finite[i],
+                               "last_shape": shape}
+                           for i, f in enumerate(groups) if i}
+    return out
+
+
+def faulty_controls(decode, model, params, tokens, logits, faults: tuple[str, ...],
+                    **kw) -> dict:
+    """decode_vs_prefill under each of ``faults`` over CONTROL_POSITIONS
+    positions, all in the same steps (each on its own copy of the rows)."""
+    first = decode_vs_prefill(decode, model, params, tokens, logits, CONTROL_POSITIONS,
+                              fault=faults[0], controls=faults[1:], **kw)
+    return {faults[0]: first, **first.pop("controls")}
 
 
 def decode_gate(r: dict) -> bool:
@@ -1120,9 +1293,7 @@ def prefill_phase(cfg, model, params) -> dict:
     # step-by-step decode over the same prompt, then the faulty controls
     decode = make_decode_step(model, window=window, device=DEVICE)
     sound = decode_vs_prefill(decode, model, params, tokens, logits, s)
-    controls = {f: decode_vs_prefill(decode, model, params, tokens, logits,
-                                     CONTROL_POSITIONS, fault=f)
-                for f in CONTROL_FAULTS}
+    controls = faulty_controls(decode, model, params, tokens, logits, CONTROL_FAULTS)
 
     out = {"shape": [b, s], **res, "decode_vs_prefill": sound,
            "decode_vs_prefill_faulty_controls": controls}
@@ -1174,7 +1345,7 @@ def device_profile(fn, n: int, groups: dict[str, tuple[str, ...]] | None = None)
     return out
 
 
-def profile_phase(cfg, model, params) -> dict:
+def profile_phase(cfg, model, params, label: str = "profile") -> dict:
     """Where a decode step's and a prefill's time goes (not counted)."""
     b = SERVE["batch"]
     decode = make_decode_step(model, device=DEVICE)
@@ -1187,7 +1358,7 @@ def profile_phase(cfg, model, params) -> dict:
     prefill = make_prefill(model, device=DEVICE)
     out = {"decode_step": device_profile(lambda: decode(params, cache, batch), 8),
            "prefill": device_profile(lambda: prefill(params, {"tokens": tokens}), 2)}
-    print("profile phase: " + json.dumps(out), flush=True)
+    print(f"{label} phase: " + json.dumps(out), flush=True)
     return out
 
 
@@ -1330,9 +1501,7 @@ def moe_serve_phase(smi: str) -> dict:
     logits8 = make_prefill(model8, device=DEVICE)(params, {"tokens": tokens})
     decode = make_decode_step(model8, device=DEVICE)
     sound = decode_vs_prefill(decode, model8, params, tokens, logits8, CONTROL_POSITIONS)
-    controls = {f: decode_vs_prefill(decode, model8, params, tokens, logits8,
-                                     CONTROL_POSITIONS, fault=f)
-                for f in CONTROL_FAULTS}
+    controls = faulty_controls(decode, model8, params, tokens, logits8, CONTROL_FAULTS)
     del logits8
     out["decode_vs_prefill"] = {"capacity_factor": MOE_DECODE_CF, **sound}
     out["decode_vs_prefill_faulty_controls"] = controls
@@ -1438,6 +1607,196 @@ def vlm_phase(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- dense --
+def dense_runs(model, params, tokens, gated: tuple[str, ...]) -> dict:
+    """The prefill through the kernels against the plain versions in bf16
+    (the path a user serves) and in each run ``gated`` names; each gated
+    run also decodes against its prefill over CONTROL_POSITIONS positions,
+    with both CONTROL_FAULTS in the same steps (decode_vs_prefill's
+    ``controls``)."""
+    decode = make_decode_step(model, device=DEVICE)
+    out = {}
+    for name in dict.fromkeys(("bf16", *gated)):
+        f32 = name == "f32"
+        with f32_activations() if f32 else contextlib.nullcontext():
+            r = prefill_vs_plain(model, params, {"tokens": tokens})
+            logits = r.pop("logits")
+            del r["plain"]
+            r["finite"] = bool(torch.isfinite(logits).all())
+            r["argmax_is_input_token"] = float((logits.argmax(-1) == tokens).float().mean())
+            if name in gated:
+                sound = decode_vs_prefill(
+                    decode, model, params, tokens, logits, CONTROL_POSITIONS,
+                    cache_dtype=torch.float32 if f32 else torch.bfloat16,
+                    controls=CONTROL_FAULTS)
+                r["decode_vs_prefill_faulty_controls"] = sound.pop("controls")
+                r["decode_vs_prefill"] = sound
+            del logits
+        out[name] = r
+    return out
+
+
+def danube_long_prefill(cfg, model, params, gated) -> dict:
+    """danube's DANUBE_LONG prefill under its native window, kernels
+    against the plain versions in bf16 and in the runs ``gated`` names,
+    with the peak memory reckoned beforehand: the weights, two f32 logits
+    and the plain attention's two live [heads, S, S] f32 score tensors of
+    one layer."""
+    weight_bytes = sum(t.numel() * t.element_size() for t in pspec.flatten(params).values())
+    b, s = DANUBE_LONG
+    window = decode_window(cfg, s)
+    check(window == cfg.sliding_window < s, f"{cfg.name}: window {window} at S = {s}")
+    reckoned = weight_bytes + 2 * 4 * b * s * cfg.vocab_size + 2 * 4 * b * cfg.n_heads * s * s
+    print(f"{cfg.name} [{b}, {s}] prefill under window {window}: peak reckoned "
+          f"{reckoned / 1e9:.1f} GB", flush=True)
+    tokens = torch.as_tensor(TokenStream(cfg.vocab_size, s, seed=5).batch(0, b)["tokens"],
+                             device=DEVICE)
+    out = {"shape": [b, s], "window": window, "peak_reckoned_bytes": reckoned}
+    for name in ("bf16", *gated):
+        with f32_activations() if name == "f32" else contextlib.nullcontext():
+            torch.cuda.reset_peak_memory_stats()
+            r = prefill_vs_plain(model, params, {"tokens": tokens}, window)
+        logits = r.pop("logits")
+        del r["plain"]
+        out[name] = {**r, "finite": bool(torch.isfinite(logits).all()),
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        del logits
+    return out
+
+
+def danube_window_cut(cfg, model, params, f32: bool) -> dict:
+    """Decode past a window, cut: the window set to DANUBE_CUT_WINDOW for
+    both the prefill and the decode step over DANUBE_CUT_SHAPE tokens
+    (with f32 activations and caches when ``f32``), decode against prefill
+    at every position with the faulty controls in the same steps (read
+    over CONTROL_POSITIONS), and
+    decode without the cut window (the config's 4,096, which does not bind
+    here) against the same prefill over CONTROL_POSITIONS, reported."""
+    b, s = DANUBE_CUT_SHAPE
+    w = DANUBE_CUT_WINDOW
+    tokens = torch.as_tensor(TokenStream(cfg.vocab_size, s, seed=6).batch(0, b)["tokens"],
+                             device=DEVICE)
+    kw = dict(cache_dtype=torch.float32 if f32 else torch.bfloat16)
+    with f32_activations() if f32 else contextlib.nullcontext():
+        ops.reset_launch_counts()
+        logits = make_prefill(model, window=w, device=DEVICE)(params, {"tokens": tokens})
+        counts = ops.launch_counts()
+        decode = make_decode_step(model, window=w, device=DEVICE)
+        sound = decode_vs_prefill(decode, model, params, tokens, logits, s,
+                                  controls=CONTROL_FAULTS, **kw)
+        controls = sound.pop("controls")
+        unwindowed = decode_vs_prefill(make_decode_step(model, device=DEVICE), model, params,
+                                       tokens, logits, CONTROL_POSITIONS, **kw)
+    return {"shape": [b, s], "window": w, "f32_activations": f32, "launches": counts,
+            "finite": bool(torch.isfinite(logits).all()), "decode_vs_prefill": sound,
+            "decode_vs_prefill_faulty_controls": controls,
+            "decode_without_the_window_vs_prefill": unwindowed}
+
+
+def dense_phase(smi: str) -> dict:
+    """The dense decoders of DENSE_PARAMS at full published width, one at a
+    time: serve, a profile of a prefill and a decode step (with the
+    prefill's peak memory), the prefill held to the plain versions and
+    decode against it with the faulty controls, in bf16 and, where
+    DENSE_GATED reads it, with f32 activations (on f32 weights,
+    weights_to_f32); danube's long prefill and window cut."""
+    out = {}
+    for arch, n_params in DENSE_PARAMS.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        gated = DENSE_GATED[arch]
+        model, params, r = init_full(cfg, arch)
+        check(r["n_params"] == n_params == cfg.param_count(),
+              f"{arch} at full width: {r['n_params']} parameters")
+        r["serve"] = serve_phase(cfg, params, f"dense_serve {arch}")
+        torch.cuda.reset_peak_memory_stats()
+        r["profile"] = profile_phase(cfg, model, params, f"dense_profile {arch}")
+        r["prefill_peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        if "f32" in gated:
+            weights_to_f32(params)
+        b, s = PREFILL_SHAPE
+        tokens = torch.as_tensor(TokenStream(cfg.vocab_size, s, seed=5).batch(0, b)["tokens"],
+                                 device=DEVICE)
+        r["prefill"] = dense_runs(model, params, tokens, gated)
+        if arch == DANUBE_ARCH:
+            r["long_prefill"] = danube_long_prefill(cfg, model, params, gated)
+            torch.cuda.empty_cache()
+            r["window_cut"] = danube_window_cut(cfg, model, params, "f32" in gated)
+        del model, params
+        torch.cuda.empty_cache()
+        r["seconds"] = time.perf_counter() - t0
+        print(f"dense {arch}: {r['seconds']:.1f} s [{smi}]", flush=True)
+        out[arch] = r
+    print(f"dense phase [{smi}]: " + json.dumps(out), flush=True)
+
+    for arch, r in out.items():
+        cfg, gated = get_config(arch), DENSE_GATED[arch]
+        per_pass = {"rmsnorm": 2 * cfg.n_layers + 1, "swa_attention": cfg.n_layers,
+                    "fused_sgd_update": 0}
+        own_token = cfg.name.startswith(OWN_TOKEN_ARGMAX)
+        if own_token:
+            share = r["prefill"]["bf16"]["argmax_is_input_token"]
+            check(share >= OWN_TOKEN_SHARE_MIN, f"{arch}: the argmax is the input token at "
+                  f"{share} of the positions, not at {OWN_TOKEN_SHARE_MIN} or more")
+        check_prefill_runs(f"dense {arch}", r["prefill"], gated, per_pass["rmsnorm"], 0,
+                           cfg.n_layers, cfg.vocab_size, argmax_half=not own_token)
+        peak = max(r["init_peak_memory_bytes"], r["serve"]["peak_memory_bytes"],
+                   r["prefill_peak_memory_bytes"],
+                   *(r[k][name]["peak_memory_bytes"] for k in ("long_prefill",) if k in r
+                     for name in ("bf16", *gated)))
+        check(peak < torch.cuda.get_device_properties(0).total_memory,
+              f"{arch} peak memory {peak}")
+        counted = [r["serve"], *r["prefill"].values()]
+        if arch == DANUBE_ARCH:
+            long, cut = r["long_prefill"], r["window_cut"]
+            for name in ("bf16", *gated):
+                check(long[name]["launches"] == per_pass and long[name]["finite"],
+                      f"danube long prefill {name}: launches {long[name]['launches']}, "
+                      f"finite {long[name]['finite']}")
+                counted.append(long[name])
+            for name in gated:
+                check(contract(long[name]), f"danube long prefill {name}, kernels vs "
+                      f"plain: rel err {long[name]['rel_err_vs_plain']}, argmax "
+                      f"{long[name]['argmax_agree_vs_plain']}")
+            sound = cut["decode_vs_prefill"]
+            check(cut["launches"] == per_pass, f"danube window cut launches {cut['launches']}")
+            check(cut["finite"] and sound["finite"], "danube window cut logits finite")
+            check(decode_gate(sound) and decode_gate(sound["head"]),
+                  f"danube decode vs prefill at window {DANUBE_CUT_WINDOW}: {sound}")
+            check_controls(f"danube window {DANUBE_CUT_WINDOW}",
+                           cut["decode_vs_prefill_faulty_controls"])
+            counted.append(cut)
+        r["launches"] = {k: sum(c["launches"][k] for c in counted) for k in per_pass}
+    return out
+
+
+def weights_to_f32(tree: dict) -> None:
+    """Every bf16 weight of a nested parameter dict in f32, in place, one
+    leaf at a time (each bf16 leaf is freed as its copy is made: qwen2.5-14b
+    holds 59 GB of f32 weights, not 89 GB of both). The runs with f32
+    activations then cast no weight at each use (29.5 GB a decode step for
+    qwen2.5-14b); a bf16 run casts each back to the same bf16 value."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            weights_to_f32(value)
+        elif value.dtype == torch.bfloat16:
+            tree[key] = value.float()
+
+
+def dense_launches(dense: dict, name: str) -> dict:
+    """The dense phase's launches of kernel ``name`` for the kernels line:
+    all of a config's, a prefill's, a decode step's, danube's long
+    prefill's."""
+    return {"launches_dense": {a: r["launches"][name] for a, r in dense.items()},
+            "launches_per_dense_prefill": {a: r["prefill"]["bf16"]["launches"][name]
+                                           for a, r in dense.items()},
+            "launches_per_dense_decode_step": {
+                a: r["serve"]["launches"][name] / r["serve"]["decode_steps"]
+                for a, r in dense.items()},
+            "launches_per_danube_long_prefill":
+                dense[DANUBE_ARCH]["long_prefill"]["bf16"]["launches"][name]}
+
+
 # ------------------------------------------------------ ssm and hybrid --
 def norm_launches(model) -> tuple[int, int]:
     """rmsnorm launches of one forward or decode step of an SSM or hybrid
@@ -1501,8 +1860,8 @@ def ssm_train(cfg, smi: str) -> dict:
     first = {k: torch.as_tensor(v, device=DEVICE) for k, v in
              data.batch(0, SSM_TRAIN["batch"]).items()}
     with f32_activations():
-        step_check = {"f32": lm_step_vs_plain(model, params, first, "gnorm/scale")}
-    step_check["bf16"] = lm_step_vs_plain(model, params, first, "gnorm/scale")
+        step_check = {"f32": lm_step_vs_plain(model, params, first, "layers/gnorm/scale")}
+    step_check["bf16"] = lm_step_vs_plain(model, params, first, "layers/gnorm/scale")
     torch.cuda.empty_cache()
 
     state = {"params": params, "opt": opt.init(params)}
@@ -1560,39 +1919,47 @@ def ssm_prefill_and_decode(model, params, tokens, gated: tuple[str, ...],
             r["decode_vs_prefill"] = decode_vs_prefill(
                 decode, dm, params, tokens, logits, CONTROL_POSITIONS, cache_dtype=cache_dtype)
             if name in gated:
-                r["decode_vs_prefill_faulty_controls"] = {
-                    f: decode_vs_prefill(decode, dm, params, tokens, logits,
-                                         CONTROL_POSITIONS, fault=f, cache_dtype=cache_dtype)
-                    for f in SSM_CONTROL_FAULTS}
+                r["decode_vs_prefill_faulty_controls"] = faulty_controls(
+                    decode, dm, params, tokens, logits, SSM_CONTROL_FAULTS,
+                    cache_dtype=cache_dtype)
             del logits
         out[name] = r
     return out
 
 
-def check_ssm_prefill(label: str, runs: dict, gated: tuple[str, ...], per_pass: int,
-                      grouped: int, swa: int, vocab: int) -> None:
-    """The gates of ssm_prefill_and_decode's readings: launches of both
-    counted prefills; the contract, decode_gate and the failing controls
-    on the runs named in ``gated``."""
+def check_controls(label: str, controls: dict, argmax_half: bool = True) -> None:
+    """Each half of decode_gate on its own must fail each faulty control:
+    the relative error always, the argmax agreement unless ``argmax_half``
+    is False (a config in OWN_TOKEN_ARGMAX)."""
+    for fault, c in controls.items():
+        check((c["argmax_agree"] < DECODE_AGREE_MIN or not argmax_half)
+              and c["rel_err_all"] >= 0.08,
+              f"{label} decode vs prefill gate passed the faulty control {fault}: {c}")
+
+
+def check_prefill_runs(label: str, runs: dict, gated: tuple[str, ...], per_pass: int,
+                       grouped: int, swa: int, vocab: int, argmax_half: bool = True) -> None:
+    """The gates of ssm_prefill_and_decode's and dense_runs' readings:
+    launches of every counted prefill; the contract, decode_gate and the
+    failing controls on the runs named in ``gated``."""
     for name, r in runs.items():
         check(r["launches"] == {"rmsnorm": per_pass, "swa_attention": swa,
                                 "fused_sgd_update": 0}
               and r["rmsnorm_grouped_launches"] == grouped,
               f"{label} {name} prefill launches {r['launches']}, "
               f"grouped {r['rmsnorm_grouped_launches']}")
-        d = r["decode_vs_prefill"]
-        check(r["finite"] and d["finite"] and d["last_shape"][1:] == [1, vocab],
-              f"{label} {name} logits finite, decode {d['last_shape']}")
+        check(r["finite"], f"{label} {name} prefill logits finite")
+        if "decode_vs_prefill" in r:
+            d = r["decode_vs_prefill"]
+            check(d["finite"] and d["last_shape"][1:] == [1, vocab],
+                  f"{label} {name} decode logits finite, {d['last_shape']}")
     for name in gated:
         r = runs[name]
         check(contract(r), f"{label} {name} kernels vs plain prefill: rel err "
               f"{r['rel_err_vs_plain']}, argmax {r['argmax_agree_vs_plain']}")
         check(decode_gate(r["decode_vs_prefill"]),
               f"{label} {name} decode vs prefill: {r['decode_vs_prefill']}")
-        for fault, c in r["decode_vs_prefill_faulty_controls"].items():
-            check(c["argmax_agree"] < DECODE_AGREE_MIN and c["rel_err_all"] >= 0.08,
-                  f"{label} {name} decode vs prefill gate passed the faulty control "
-                  f"{fault}: {c}")
+        check_controls(f"{label} {name}", r["decode_vs_prefill_faulty_controls"], argmax_half)
 
 
 def ssm_phase(smi: str) -> dict:
@@ -1630,7 +1997,7 @@ def ssm_phase(smi: str) -> dict:
     out["train"] = ssm_train(cfg, smi)
     print(f"ssm phase [{smi}]: " + json.dumps(out), flush=True)
 
-    check_ssm_prefill("SSM", out["prefill"], SSM_GATED, per_pass, grouped, 0, cfg.vocab_size)
+    check_prefill_runs("SSM", out["prefill"], SSM_GATED, per_pass, grouped, 0, cfg.vocab_size)
     sc = out["train"]["step_vs_plain"]
     none = {"swa_attention": 0, "fused_sgd_update": 0}
     for name, r in sc.items():
@@ -1686,8 +2053,8 @@ def hybrid_phase(smi: str) -> dict:
     print(f"hybrid phase [{smi}]: " + json.dumps(out), flush=True)
 
     runs = {k: out["prefill"][k] for k in ("bf16", "f32")}
-    check_ssm_prefill("hybrid", runs, HYBRID_GATED, per_pass, grouped, model.n_blocks,
-                      cfg.vocab_size)
+    check_prefill_runs("hybrid", runs, HYBRID_GATED, per_pass, grouped, model.n_blocks,
+                       cfg.vocab_size)
     peak = max(out["init_peak_memory_bytes"], out["prefill_peak_memory_bytes"],
                out["serve"]["peak_memory_bytes"])
     check(peak < 80e9, f"hybrid peak memory {peak}")
@@ -1699,6 +2066,48 @@ def hybrid_phase(smi: str) -> dict:
 
 # ------------------------------------------------------------- training --
 # ---------------------------------------------------------------- audio --
+class AudioBatches:
+    """TokenStream's tokens and labels with frames [B, n_frames, D] at
+    AUDIO_FRAMES_SCALE, drawn on the device from a generator seeded by the
+    step (the audio front end is a stub: whisper reads frame embeddings)."""
+
+    def __init__(self, cfg, seq: int, seed: int = 0):
+        self.cfg, self.seq = cfg, seq
+        self.tokens = TokenStream(cfg.vocab_size, seq, seed=seed)
+
+    def batch(self, step: int, batch_size: int) -> dict:
+        gen = torch.Generator(device=DEVICE).manual_seed(1000 + step)
+        out = {k: torch.as_tensor(v, device=DEVICE)
+               for k, v in self.tokens.batch(step, batch_size).items()}
+        out["frames"] = randn(gen, (batch_size, self.cfg.n_frontend_tokens, self.cfg.d_model),
+                              torch.float32, AUDIO_FRAMES_SCALE)
+        return out
+
+
+def audio_train(cfg, smi: str) -> dict:
+    """whisper-base trained at full width: f32 masters, AdamW. The step
+    check at the initial weights, then AUDIO_TRAIN_STEPS steps through
+    make_train_step."""
+    model = build_model(cfg, torch.float32)
+    b, s = AUDIO_PREFILL
+    data = AudioBatches(cfg, s)
+    opt = adamw()
+    sched = warmup_cosine(LM["base_lr"], warmup=LM["warmup"], total=LM["steps"])
+    params = model.init(torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    step_check = lm_step_vs_plain(model, params, data.batch(0, b), AUDIO_ZEROED_LEAF)
+    step_check["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    state = {"params": params, "opt": opt.init(params)}
+    step = make_train_step(model, opt, device=DEVICE)
+    run = train_steps(step, state, data, sched, range(AUDIO_TRAIN_STEPS), b)
+    print(f"audio_train: {cfg.name}, {b} x {s} tokens over {cfg.n_frontend_tokens} frames "
+          f"a step: {run['step_ms_median']:.1f} ms a step (median of steps 2-"
+          f"{AUDIO_TRAIN_STEPS}), {run['tokens_per_s']:.0f} tokens/s, peak "
+          f"{run['peak_memory_bytes']} bytes, losses {run['losses']} [{smi}]", flush=True)
+    return {"n_params": int(params.flat.numel()), "batch": b, "seq": s,
+            "step_vs_plain": step_check, **run}
+
+
 def audio_phase(smi: str) -> dict:
     cfg = get_config(AUDIO_ARCH)
     model, params, out = init_full(cfg, AUDIO_ARCH)
@@ -1723,9 +2132,8 @@ def audio_phase(smi: str) -> dict:
     ops.reset_launch_counts()
     sound = decode_vs_prefill(decode, model, params, tokens, logits, CONTROL_POSITIONS, enc=enc)
     decode_launches = ops.launch_counts()
-    controls = {f: decode_vs_prefill(decode, model, params, tokens, logits,
-                                     CONTROL_POSITIONS, fault=f, enc=enc)
-                for f in AUDIO_CONTROL_FAULTS}
+    controls = faulty_controls(decode, model, params, tokens, logits, AUDIO_CONTROL_FAULTS,
+                               enc=enc)
     r["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
     del logits
 
@@ -1752,6 +2160,9 @@ def audio_phase(smi: str) -> dict:
                                          for k, v in decode_launches.items()})
     out["serve"] = serve_phase(cfg, params, "audio_serve", per_step=0,
                                swa_per_step=cfg.n_layers)
+    del model, params
+    torch.cuda.empty_cache()
+    out["train"] = audio_train(cfg, smi)
     print(f"audio phase [{smi}]: " + json.dumps(out), flush=True)
 
     per_prefill = {"rmsnorm": 0, "swa_attention": cfg.encoder_layers + 2 * cfg.n_layers,
@@ -1769,8 +2180,23 @@ def audio_phase(smi: str) -> dict:
     for fault, c in controls.items():
         check(not decode_gate(c), f"audio decode vs prefill gate passed the faulty "
               f"control {fault}: {c}")
+    tr, sc = out["train"], out["train"]["step_vs_plain"]
+    check(sc["launches"] == {**per_prefill, "rmsnorm_grouped": 0},
+          f"audio step launches {sc['launches']}")
+    check(lm_step_gate(sc["kernels"]),
+          f"audio step, kernels vs plain: {sc['kernels']}, limits {LM_STEP_LIMITS}")
+    check(sc["kernels"]["zero_gradient_leaves_norm_rel"] < AUDIO_ZERO_GRAD_LIMIT,
+          f"audio step: key-bias gradients {sc['kernels']}")
+    for control in LM_CONTROLS:
+        check(not lm_step_gate(sc[control]),
+              f"audio step gate passed the control {control}: {sc[control]}")
+    check(tr["launches"] == {**{k: n * AUDIO_TRAIN_STEPS for k, n in per_prefill.items()},
+                             "rmsnorm_grouped": 0},
+          f"audio train launches {tr['launches']}: {per_prefill} a step")
+    check(all(math.isfinite(l) for l in tr["losses"]), f"audio losses finite: {tr['losses']}")
     out["launches"] = {k: out["serve"]["launches"][k] + r["launches"][k]
-                       + decode_launches[k] for k in r["launches"]}
+                       + decode_launches[k] + sc["launches"][k] + tr["launches"][k]
+                       for k in r["launches"]}
     return out
 
 
@@ -2203,18 +2629,41 @@ def sched_phase(smi: str) -> dict:
 
 
 # ------------------------------------------------------------ LM train --
-def lm_grad_errors(got: torch.Tensor, want: torch.Tensor, shapes: dict) -> dict:
+def stacked_leaves(model) -> set[str]:
+    """Paths of the leaves stacked on a leading layer axis (``layers/...``
+    of the decoder-only and SSM families; whisper's ``encoder/...`` and
+    ``decoder/...``), as ``engine.steps`` splits them for autograd."""
+    return {path for path, s in pspec.flatten(model.param_specs()).items()
+            if s.axes[:1] == ("layers",)}
+
+
+def zero_gradient_leaves(model) -> set[str]:
+    """Paths of the leaves whose gradient is zero in exact arithmetic: the
+    key bias of an attention whose keys get no rotary position (whisper's
+    three attentions, which have sinusoidal positions on the input, and
+    any cross-attention). It adds q.b to every score of a query's row, and
+    softmax is invariant to that, so its gradient in either route is
+    rounding alone."""
+    cfg = model.cfg
+    return {path for path in pspec.flatten(model.param_specs())
+            if path.endswith("attn/bk") and (not cfg.rope_theta or "xattn" in path)}
+
+
+def lm_grad_errors(got: torch.Tensor, want: torch.Tensor, shapes: dict,
+                   stacked: set[str], zero: set[str] = frozenset()) -> dict:
     """Relative L2 error of a flat gradient against another, over the whole
-    buffer and at its worst leaf, a stacked leaf (``layers/...``) per
-    layer; sums of squares in f64 one leaf at a time (the buffers hold
-    3.4 B values each)."""
-    num = den = worst = 0.0
+    buffer and at its worst leaf, a stacked leaf (a path in ``stacked``)
+    per layer; sums of squares in f64 one leaf at a time (the buffers hold
+    3.4 B values each). The leaves in ``zero`` (``zero_gradient_leaves``)
+    count in the flat error but not for the worst leaf: their largest
+    L2 norm, relative to the whole gradient's, is reported instead."""
+    num = den = worst = zero_norm = 0.0
     worst_leaf, off = None, 0
     for path, shape in shapes.items():
         size = math.prod(shape)
         g, w = got[off:off + size].view(shape), want[off:off + size].view(shape)
         off += size
-        if path.startswith("layers/"):
+        if path in stacked:
             pairs = [(f"{path}[{i}]", a, b)
                      for i, (a, b) in enumerate(zip(g.unbind(0), w.unbind(0)))]
         else:
@@ -2223,24 +2672,32 @@ def lm_grad_errors(got: torch.Tensor, want: torch.Tensor, shapes: dict) -> dict:
             d2 = float((a - b).double().square().sum())
             b2 = float(b.double().square().sum())
             num, den = num + d2, den + b2
+            if path in zero:
+                zero_norm = max(zero_norm, b2, float(a.double().square().sum()))
+                continue
             err = math.sqrt(d2 / b2) if b2 else (0.0 if d2 == 0 else math.inf)
             if err > worst:
                 worst, worst_leaf = err, name
-    return {"flat_rel_err": math.sqrt(num / den), "worst_leaf_rel_err": worst,
-            "worst_leaf": worst_leaf}
+    out = {"flat_rel_err": math.sqrt(num / den), "worst_leaf_rel_err": worst,
+           "worst_leaf": worst_leaf}
+    if zero:
+        out["zero_gradient_leaves_norm_rel"] = math.sqrt(zero_norm / den)
+    return out
 
 
 def lm_step_gate(r: dict) -> bool:
     return all(r[key] < limit for key, limit in LM_STEP_LIMITS.items())
 
 
-def lm_step_vs_plain(model, params, batch: dict, leaf: str = "mlp/wo") -> dict:
+def lm_step_vs_plain(model, params, batch: dict, leaf: str = "layers/mlp/wo") -> dict:
     """One step's loss and flat gradient through the kernels against the
     same step through the plain versions called directly, and the two
-    controls: labels shifted, and the last layer's ``layers/{leaf}``
-    gradient zeroed. Holds three full-size buffers: parameters and two flat
-    gradients."""
-    shapes = params.shapes()
+    controls: labels shifted, and the last layer's gradient of the stacked
+    leaf ``leaf`` zeroed. Holds three full-size buffers: parameters and
+    two flat gradients."""
+    shapes, stacked = params.shapes(), stacked_leaves(model)
+    zero = zero_gradient_leaves(model)
+    check(leaf in stacked, f"{leaf} is not a stacked leaf of {model.cfg.name}")
     with plain_versions():
         want_loss, want = value_and_flat_grad(model, params, batch)
     want_loss = float(want_loss)
@@ -2250,14 +2707,11 @@ def lm_step_vs_plain(model, params, batch: dict, leaf: str = "mlp/wo") -> dict:
 
     def errors(l) -> dict:
         return {"loss": float(l), "loss_rel_err": abs(float(l) - want_loss) / abs(want_loss),
-                **lm_grad_errors(grads, want, shapes)}
+                **lm_grad_errors(grads, want, shapes, stacked, zero)}
 
     out = {"plain_loss": want_loss, "launches": counts, "kernels": errors(loss),
-           "zeroed_leaf": f"layers/{leaf}"}
-    node = pspec.views(grads, shapes)["layers"]
-    for k in leaf.split("/"):
-        node = node[k]
-    node[-1].zero_()
+           "zeroed_leaf": leaf}
+    pspec.flatten(pspec.views(grads, shapes))[leaf][-1].zero_()
     out["one_layer_zeroed"] = errors(loss)
     shifted = dict(batch, labels=torch.roll(batch["labels"], 1, dims=1))
     loss, grads = value_and_flat_grad(model, params, shifted, grads)
@@ -2719,7 +3173,7 @@ def main() -> int:
     for name in build.SOURCES:
         log = build.BUILD_DIR / f"{name}.log"
         for line in (log.read_text().splitlines() if log.exists() else []):
-            if "registers" in line or "spill" in line:
+            if any(key in line for key in ("entry function", "registers", "spill")):
                 print(f"  {name}: {line.strip()}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2749,6 +3203,9 @@ def main() -> int:
     vlm = vlm_phase(smi)
     torch.cuda.empty_cache()
     print(f"vlm phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    dense = dense_phase(smi)
+    torch.cuda.empty_cache()
+    print(f"dense phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
     ssm = ssm_phase(smi)
     torch.cuda.empty_cache()
     print(f"ssm phase done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2793,6 +3250,7 @@ def main() -> int:
             "replaces": tpu[name], "tpu_counterpart": f"{tpu[name]} {name}",
             "launches": (served["launches"][name] + prefilled["launches"][name]
                          + moe["launches"][name] + vlm["launches"][name]
+                         + sum(r["launches"][name] for r in dense.values())
                          + ssm["launches"][name] + hybrid["launches"][name]
                          + audio["launches"][name] + lm_trained["launches"][name]
                          + sharded["launches"][name] + lm_dp["launches"][name]),
@@ -2805,11 +3263,14 @@ def main() -> int:
             "launches_per_vlm_prefill": vlm["prefill"]["launches"][name],
             "launches_per_vlm_decode_step": (vlm["serve"]["launches"][name]
                                              / vlm["serve"]["decode_steps"]),
+            **dense_launches(dense, name),
             "launches_lm_train": lm_trained["launches"][name],
             "launches_per_lm_train_step": lm_trained["launches"][name] / lm_trained["steps"],
             "launches_per_hybrid_prefill": hybrid["prefill"]["bf16"]["launches"][name],
             "launches_per_audio_prefill": audio["prefill"]["launches"][name],
             "launches_per_audio_decode_step": audio["decode_launches_per_step"][name],
+            "launches_per_audio_train_step": (audio["train"]["launches"][name]
+                                              / AUDIO_TRAIN_STEPS),
             "launches_lm_dp": lm_dp["launches"][name],  # all ranks, all algorithms
             "launches_per_lm_dp_rank_step": lm_dp["launches"][name] / (
                 LM_DP.world * LM_DP.steps * len(LM_DP.algorithms)),
@@ -2835,7 +3296,9 @@ def main() -> int:
             **({"at_decode": k["decode"]} if "decode" in k else {}),
             # the other dtype's route, and the design of each route timed
             # as the built library reports it
-            **({"f32": k["prefill_f32"], "at_audio": k["audio"],
+            **({"f32": k["prefill_f32"], "at_audio": k["audio"], "at_dense": k["dense"],
+                "backward_cross_max_abs_err": k["backward_cross_max_abs_err"],
+                "design_by_head_dim": k["design_by_head_dim"],
                 "design": {str(dt).removeprefix("torch."):
                            swa_kernel.design(dt, cfg.d_head)
                            for dt in swa_kernel.KERNELS}}

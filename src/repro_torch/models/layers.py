@@ -168,8 +168,9 @@ def chunked_attention(q, k, v, *, causal: bool = True,
             q, k, v, whole=(1, 3))
     b, sq, h, d = q.shape
 
-    def to_bh(t):  # [B, S, H, D] -> [B*H, S, D]
-        return t.permute(0, 2, 1, 3).reshape(b * h, t.shape[1], d)
+    def to_bh(t):  # [B, S, H, D] -> [B*H, S, D], contiguous as the kernel
+        # needs it (at B = 1 the reshape is a strided view of t)
+        return t.permute(0, 2, 1, 3).reshape(b * h, t.shape[1], d).contiguous()
 
     out = ops.swa_attention(to_bh(q), to_bh(k), to_bh(v), causal=causal,
                             window=window, q_offset=q_offset)
