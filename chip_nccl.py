@@ -55,6 +55,19 @@ f. restart: ``launch.train`` (qwen2.5-3b, AdamW, ring over NCCL) under
    workers, finite losses. At full depth when the disk holds two
    checkpoints and the host memory four restores, else at the deepest
    cut that does (printed).
+g. dbrx_tp: dbrx-132b at full published width and depth (131.6 B
+   parameters) served on a (1, 4) ("data", "model") mesh of NCCL
+   DeviceMeshes, a card a rank: each rank draws only its local shards
+   (``models.spec.init_local``, 66.42 GB), then runs the [2, 1024]
+   prefill through ``engine.steps.make_prefill`` with a mesh ``Sharder``
+   in bf16 and with f32 activations, each held to the plain versions on
+   the same shards with the routing flips counted (81 rmsnorm and 40
+   swa_attention launches a pass), decode against prefill at capacity
+   factor 8 over DBRX_POSITIONS positions with both faulty-cache controls
+   in the gated run (81 rmsnorm a step), ``launch.serve.serve`` on the
+   mesh (the same tokens on every rank) and a profile of a decode step
+   and a prefill, each held to the bound of the dry-run of the same step
+   on the (1, 4) AbstractMesh, whose collective bytes are printed.
 
 Every phase asked for runs, whatever an earlier one found; the script
 exits non-zero if any failed. Its last line is
@@ -63,6 +76,7 @@ exits non-zero if any failed. Its last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -88,17 +102,26 @@ import chip_smoke as cs
 from repro_torch.collectives import cost  # noqa: E402
 from repro_torch.collectives import dist as cdist  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import build, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import fused_update as sgd_kernel  # noqa: E402
 from repro_torch.launch import explicit_allreduce as dp  # noqa: E402
 from repro_torch.launch import mesh as mesh_module  # noqa: E402
+from repro_torch.configs.shapes import InputShape  # noqa: E402
+from repro_torch.data.synthetic import TokenStream  # noqa: E402
+from repro_torch.engine.steps import make_decode_step, make_prefill  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import spec as pspec  # noqa: E402
+from repro_torch.models.layers import Sharder  # noqa: E402
+from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.optim import rescale_lr, warmup_cosine  # noqa: E402
+from repro_torch.sharding.rules import default_rules  # noqa: E402
 
 check = cs.check
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_nccl"  # logs; main's --out
 CARDS = 4
-PHASES = ("exchange", "calibrate", "resnet_dp", "lm_dp", "sharded", "restart")
+PHASES = ("exchange", "calibrate", "resnet_dp", "lm_dp", "sharded", "dbrx_tp", "restart")
 # set by a CPU rehearsal only: gloo ranks on the host, launch.train at
 # the smoke config
 BACKEND = "nccl"
@@ -124,6 +147,36 @@ LM_DP_TIMEOUT_S = 180
 # (f) the resize: steps before and after, tokens a worker
 RESTART = dict(workers=(2, 4), steps=(2, 2), m_per_worker=2, seq=128, lr=3e-4)
 RESTART_TIMEOUT_S = 900
+# (g) dbrx-132b at full published width and depth (40 layers, d_model
+# 6,144, 48/8 heads of 128, 16 experts top-4 of d_ff 10,752, vocab
+# 100,352) served on a (1, 4) ("data", "model") mesh, a card a rank: the
+# rules shard its experts, heads, MLP and vocab over "model" only, so each
+# rank holds a quarter, 66.42 GB (263 GB of bf16 experts in all: no card
+# holds the model). Its weights are drawn on each rank as local shards
+# (models.spec.init_local, seed DBRX_SEED). The gates read the runs
+# DBRX_GATED names, as the one-card dense phase's DENSE_GATED does. At 40
+# layers with random weights its bf16 readings are rounding: on four
+# NVIDIA H100 80GB HBM3 at 700 W, with both runs gated, the bf16 prefill
+# read rel err 0.0107 and argmax 0.989 against the plain versions (1,295
+# of 81,920 routing choices flipped), but bf16 decode against prefill read
+# argmax 0.891 over 64 positions (rel err 0.020), below decode_gate's
+# 0.90, while the f32 run read 1.3e-6 and 1.0 there and both faulty
+# controls 0.016 in each. So the gated run has f32 activations, the bf16
+# weights cast at use (no rank holds 132 GB of f32 weights), and the bf16
+# prefill's launches are gated and its agreement reported. Decode against
+# prefill over DBRX_POSITIONS positions at capacity factor 8, both faulty
+# caches decoded in the same steps (a step takes about 1 s of host time:
+# DTensor's Python dispatch of 5,938 kernels), and the serve of
+# chip_smoke.py's SERVE (159 steps) through launch.serve.serve on the mesh.
+DBRX_ARCH = cs.TP_ARCH
+DBRX_PARAMS = 131_596_523_520  # param_count()
+DBRX_MESH = mesh_module.AbstractMesh((1, CARDS), ("data", "model"))
+DBRX_LOCAL_BYTES = 66.42e9  # a rank's shards, from local_specs
+DBRX_SEED = 0
+DBRX_GATED = ("f32",)
+DBRX_POSITIONS = cs.CONTROL_POSITIONS
+DBRX_SERVE = dict(cs.SERVE)
+DBRX_TIMEOUT_S = 1500
 # the one-card gloo-host readings of PERF.md section 5 (NVIDIA H100 80GB
 # HBM3, 700 W), printed beside this run's
 GLOO_HOST = {"resnet_exchange_ms_w4": "16.1-19.9", "lm_2layer_exchange_s_w4": "4.85-7.01"}
@@ -599,6 +652,257 @@ def sharded_phase(smi: list[str]) -> dict:
     return out
 
 
+# ------------------------------------------- (g) dbrx-132b over 4 cards --
+def dbrx_rank(rank, world, init_method, out_dir):
+    """Rank ``rank`` of the (1, 4) mesh, on card ``rank``: dbrx_readings,
+    saved."""
+    dev = rank_device(rank)
+    mesh_module.init_data_group(rank, world, init_method, BACKEND, dev, TIMEOUT_S)
+    try:
+        if dev.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        torch.save(dbrx_readings(dev), Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def peak_bytes(dev) -> int | None:
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+
+
+def dbrx_readings(dev: torch.device) -> dict:
+    """One rank's readings: the local draw, the [2, 1024] prefill through
+    the kernels and the plain versions in bf16 and in each run of
+    DBRX_GATED (with the routing flips), decode against prefill at
+    capacity factor 8 in the gated runs with both faulty-cache controls,
+    the serve, and a profile of a decode step and a prefill."""
+    cfg = get_config(DBRX_ARCH)
+    sh = Sharder(mesh_module.device_mesh(DBRX_MESH))
+    model = build_model(cfg)
+    model8 = build_model(dataclasses.replace(cfg, capacity_factor=cs.MOE_DECODE_CF))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = cs.sync_time() if dev.type == "cuda" else time.perf_counter()
+    params = pspec.init_local(DBRX_SEED, model.param_specs(), sh.mesh, sh.rules, dev)
+    leaves = pspec.flatten(params).values()
+    out = {"card": dev.index,
+           "init_seconds": (cs.sync_time() if dev.type == "cuda" else time.perf_counter()) - t0,
+           "n_params": sum(t.numel() for t in leaves),
+           "local_bytes": sum(t.to_local().numel() * t.element_size() for t in leaves),
+           "memory_allocated_after_init": (torch.cuda.memory_allocated(dev)
+                                           if dev.type == "cuda" else None)}
+    b, s = cs.PREFILL_SHAPE
+    tokens = torch.as_tensor(TokenStream(cfg.vocab_size, s, seed=5).batch(0, b)["tokens"],
+                             device=dev)
+    prefill = make_prefill(model, sh, device=cs.DEVICE)
+    runs = {}
+    for name in dict.fromkeys(("bf16", *DBRX_GATED)):
+        f32 = name == "f32"
+        with cs.f32_activations() if f32 else contextlib.nullcontext():
+            r = cs.prefill_vs_plain(model, params, {"tokens": tokens}, sh=sh)
+            logits = r.pop("logits")
+            del r["plain"]
+            r["finite"] = bool(torch.isfinite(logits).all())
+            r["shape"] = list(logits.shape)
+            del logits
+            routes = {"kernels": [], "plain": []}
+            with cs.recording_routes(routes["kernels"]):
+                prefill(params, {"tokens": tokens})
+            with cs.plain_versions(), cs.recording_routes(routes["plain"]):
+                prefill(params, {"tokens": tokens})
+            k, p = routes["kernels"], routes["plain"]
+            r["routing_flips_vs_plain"] = {
+                "layer_0": cs.route_flips(k[0], p[0], cfg.n_experts),
+                "last_layer": cs.route_flips(k[-1], p[-1], cfg.n_experts),
+                "all_layers": cs.route_flips(torch.stack(k), torch.stack(p), cfg.n_experts)}
+            del routes, k, p
+            if name in DBRX_GATED:
+                # capacity factor 8 drops nothing, so the prefill of the
+                # first DBRX_POSITIONS tokens gives those positions' logits
+                head = tokens[:, :DBRX_POSITIONS]
+                logits8 = cs.whole(make_prefill(model8, sh, device=cs.DEVICE)(
+                    params, {"tokens": head}))
+                ops.reset_launch_counts()
+                t1 = time.perf_counter()
+                sound = cs.decode_vs_prefill(
+                    make_decode_step(model8, sh, device=cs.DEVICE), model8, params, head,
+                    logits8, DBRX_POSITIONS, controls=cs.CONTROL_FAULTS, sh=sh,
+                    cache_dtype=torch.float32 if f32 else torch.bfloat16)
+                r["decode_vs_prefill_faulty_controls"] = sound.pop("controls")
+                r["decode_vs_prefill"] = {"capacity_factor": cs.MOE_DECODE_CF, **sound,
+                                          "steps": DBRX_POSITIONS,
+                                          "seconds": time.perf_counter() - t1,
+                                          "launches": ops.launch_counts()}
+                del logits8
+        runs[name] = r
+    out["prefill"] = runs
+    out["prefill_peak_memory_bytes"] = peak_bytes(dev)
+
+    serve(cfg, batch=DBRX_SERVE["batch"], prompt_len=4, new_tokens=2, params=params,
+          device=cs.DEVICE, log=False, sh=sh)  # warm-up at a tiny length
+    ops.reset_launch_counts()
+    generated, seconds, last = serve(cfg, params=params, device=cs.DEVICE, log=False,
+                                     return_logits=True, sh=sh, **DBRX_SERVE)
+    steps = DBRX_SERVE["prompt_len"] + DBRX_SERVE["new_tokens"] - 1
+    out["serve"] = {**DBRX_SERVE, "decode_steps": steps, "seconds": seconds,
+                    "tokens_per_s": DBRX_SERVE["batch"] * DBRX_SERVE["new_tokens"] / seconds,
+                    "decode_step_wall_ms": 1e3 * seconds / steps,
+                    "launches": ops.launch_counts(), "tokens": generated.tolist(),
+                    "last_shape": list(last.shape),
+                    "last_finite": bool(torch.isfinite(last).all())}
+
+    # a decode step at the serve's cache length and batch, and a prefill
+    # (the dry-run's shapes), with NCCL's kernels as a group of their own
+    decode = make_decode_step(model, sh, device=cs.DEVICE)
+    length = DBRX_SERVE["prompt_len"] + DBRX_SERVE["new_tokens"]
+    cache = pspec.distributed(model.cache_specs(InputShape(
+        "p", length, DBRX_SERVE["batch"], "decode")), sh.mesh, sh.rules, dev)
+    step = {"tokens": torch.zeros((DBRX_SERVE["batch"], 1), dtype=torch.int32, device=dev),
+            "pos": torch.full((DBRX_SERVE["batch"],), length // 2, dtype=torch.int32,
+                              device=dev)}
+    groups = {"nccl": ("nccl",)}
+    out["profile"] = {
+        "decode_step": cs.device_profile(lambda: decode(params, cache, step), 4, groups),
+        "prefill": cs.device_profile(lambda: prefill(params, {"tokens": tokens}), 2, groups)}
+    out["peak_memory_bytes"] = peak_bytes(dev)
+    return out
+
+
+def dbrx_bounds() -> dict:
+    """The dry-run of the profiled prefill and decode step on the (1, 4)
+    AbstractMesh with the Sharder's rules: per device, its flops, bytes and
+    collective bytes by kind, and the roofline bound."""
+    cfg = get_config(DBRX_ARCH)
+    b, s = cs.PREFILL_SHAPE
+    length = DBRX_SERVE["prompt_len"] + DBRX_SERVE["new_tokens"]
+    out = {}
+    for shape in (InputShape("dbrx_prefill", s, b, "prefill"),
+                  InputShape("dbrx_decode", length, DBRX_SERVE["batch"], "decode")):
+        t0 = time.perf_counter()
+        rec = dryrun.dryrun_on(cfg, shape, DBRX_MESH, skip_costs=True, rules=default_rules())
+        roof = rec["roofline"]
+        out[shape.kind] = {
+            "shape": [shape.global_batch, shape.seq_len], "flops": roof["flops_per_device"],
+            "bytes": roof["bytes_per_device"],
+            "collective_bytes": roof["collective_bytes_per_device"],
+            "collectives": roof["collectives"], "compute_ms": 1e3 * roof["compute_s"],
+            "memory_ms": 1e3 * roof["memory_s"], "collective_ms": 1e3 * roof["collective_s"],
+            "dominant": roof["dominant"], "bound_ms": 1e3 * roof["bound_s"],
+            "kernel_calls": rec["kernel_calls"], "memory": rec["memory"],
+            "dryrun_seconds": time.perf_counter() - t0}
+    return out
+
+
+def dbrx_tp_phase(smi: list[str]) -> dict:
+    t0 = time.perf_counter()
+    cfg = get_config(DBRX_ARCH)
+    n = cfg.param_count()
+    local = pspec.flatten(pspec.local_specs(build_model(cfg).param_specs(), DBRX_MESH,
+                                            default_rules()))
+    reckoned = sum(math.prod(v.shape) * v.dtype.itemsize for v in local.values())
+    print(f"dbrx_tp: {cfg.name}, {n} parameters, on a "
+          f"{'x'.join(map(str, DBRX_MESH.sizes))} {DBRX_MESH.names} mesh: "
+          f"{reckoned / 1e9:.2f} GB of local shards a rank reckoned", flush=True)
+    check(n == DBRX_PARAMS, f"dbrx_tp: {n} parameters")
+    check(abs(reckoned / DBRX_LOCAL_BYTES - 1) < 0.01, f"dbrx_tp: {reckoned} B reckoned")
+    bounds = dbrx_bounds()
+    t1 = time.perf_counter()
+    ranks = dp.spawn(dbrx_rank, CARDS, (CARDS,), DBRX_TIMEOUT_S)
+    out = {"card": smi, "mesh": "x".join(map(str, DBRX_MESH.sizes)), "n_params": n,
+           "local_bytes_reckoned": reckoned, "gated": list(DBRX_GATED),
+           "positions": DBRX_POSITIONS, "bounds": bounds, "ranks": ranks,
+           "seconds": {"dryrun": t1 - t0, "ranks": time.perf_counter() - t1}}
+    # NCCL's kernels run on a stream of their own and spin until the
+    # slowest rank arrives: their time is mostly waiting on the host, so
+    # the step's busy time (and its idle share) is that of its other kernels
+    for r in ranks:
+        for kind, key in (("prefill", "prefill"), ("decode", "decode_step")):
+            prof = r["profile"][key]
+            total, groups = prof["device_busy_ms_per_call"], prof.get("groups_ms_per_call", {})
+            busy = None if total is None else total - groups.get("nccl", 0.0)
+            r.setdefault("roofline", {})[kind] = {
+                "bound_ms": bounds[kind]["bound_ms"], "device_busy_ms": busy,
+                "nccl_ms": groups.get("nccl"), "wall_ms": prof["wall_ms_per_call"],
+                "idle_share": None if busy is None else 1 - busy / prof["wall_ms_per_call"],
+                "bound_share_of_busy": bounds[kind]["bound_ms"] / busy if busy else None}
+    for r in ranks:
+        r["serve"]["tokens_equal_rank0"] = r["serve"]["tokens"] == ranks[0]["serve"]["tokens"]
+    print("dbrx_tp phase: " + json.dumps(out), flush=True)
+    dbrx_report(out, "; ".join(smi))
+    dbrx_gates(out, cfg)
+    return out
+
+
+def dbrx_report(out: dict, smi: str) -> None:
+    for kind, bd in out["bounds"].items():
+        print(f"dbrx_tp: dry-run {kind} {bd['shape']}: bound {bd['bound_ms']:.3f} ms "
+              f"({bd['dominant']}; compute {bd['compute_ms']:.3f}, memory "
+              f"{bd['memory_ms']:.3f}, collective {bd['collective_ms']:.3f} ms), collective "
+              f"bytes {json.dumps(bd['collectives'])}, kernels {bd['kernel_calls']} "
+              f"(H100 SXM5 datasheet constants)", flush=True)
+    for i, r in enumerate(out["ranks"]):
+        sv = r["serve"]
+        print(f"dbrx_tp rank {i} (card {r['card']}): {r['local_bytes'] / 1e9:.2f} GB local, "
+              f"{r['memory_allocated_after_init']} B allocated after init, peak "
+              f"{r['peak_memory_bytes']} B; serve {sv['tokens_per_s']:.2f} tok/s, decode step "
+              f"{sv['decode_step_wall_ms']:.1f} ms wall; roofline "
+              + json.dumps(r["roofline"]) + f" [{smi}]", flush=True)
+        for name, run in r["prefill"].items():
+            d = run.get("decode_vs_prefill")
+            print(f"dbrx_tp rank {i} {name}: prefill {run['seconds']:.2f} s, kernels vs plain "
+                  f"rel err {run['rel_err_vs_plain']}, argmax {run['argmax_agree_vs_plain']}, "
+                  f"routing flips {json.dumps(run['routing_flips_vs_plain']['all_layers'])}"
+                  + (f"; decode vs prefill over {d['positions']}: rel err {d['rel_err_all']}, "
+                     f"argmax {d['argmax_agree']}, controls " + json.dumps(
+                         {f: [c["rel_err_all"], c["argmax_agree"]] for f, c in
+                          run["decode_vs_prefill_faulty_controls"].items()}) if d else ""),
+                  flush=True)
+
+
+def dbrx_gates(out: dict, cfg) -> None:
+    per_pass = {"rmsnorm": 2 * cfg.n_layers + 1, "swa_attention": cfg.n_layers,
+                "fused_sgd_update": 0}
+    per_step = {"rmsnorm": 2 * cfg.n_layers + 1, "swa_attention": 0, "fused_sgd_update": 0}
+    cards = [r["card"] for r in out["ranks"]]
+    check(cards == list(range(CARDS)) or BACKEND != "nccl", f"dbrx_tp: ranks on cards {cards}")
+    for i, r in enumerate(out["ranks"]):
+        at = f"dbrx_tp rank {i}"
+        check(r["n_params"] == DBRX_PARAMS, f"{at}: {r['n_params']} parameters")
+        check(r["local_bytes"] == out["local_bytes_reckoned"]
+              and abs(r["local_bytes"] / DBRX_LOCAL_BYTES - 1) < 0.01,
+              f"{at}: {r['local_bytes']} B of local shards")
+        if r["peak_memory_bytes"] is not None:
+            total = torch.cuda.get_device_properties(r["card"]).total_memory
+            check(r["peak_memory_bytes"] < total, f"{at}: peak {r['peak_memory_bytes']} B")
+        cs.check_prefill_runs(at, r["prefill"], DBRX_GATED, per_pass["rmsnorm"], 0,
+                              cfg.n_layers, cfg.vocab_size)
+        for name in DBRX_GATED:
+            d = r["prefill"][name]["decode_vs_prefill"]
+            check(d["launches"] == {k: v * d["steps"] for k, v in per_step.items()},
+                  f"{at} {name}: decode launches {d['launches']} over {d['steps']} steps")
+        sv = r["serve"]
+        check(sv["launches"] == {k: v * sv["decode_steps"] for k, v in per_step.items()},
+              f"{at}: serve launches {sv['launches']}, {per_step} a step")
+        check(sv["tokens_equal_rank0"], f"{at}: generated tokens differ from rank 0's")
+        toks = np.asarray(sv["tokens"])
+        check(toks.shape == (sv["batch"], sv["new_tokens"])
+              and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+              f"{at}: serve tokens {toks.shape}")
+        check(sv["last_finite"] and sv["last_shape"] == [sv["batch"], 1, cfg.vocab_size],
+              f"{at}: serve's last logits {sv['last_shape']}")
+        for kind, roof in r["roofline"].items():
+            check(roof["device_busy_ms"] is not None
+                  and roof["bound_ms"] <= roof["device_busy_ms"],
+                  f"{at}: the {kind} bound {roof['bound_ms']} ms exceeds the device busy "
+                  f"time {roof['device_busy_ms']} ms")
+    check(out["bounds"]["prefill"]["kernel_calls"] == {
+        k: v for k, v in per_pass.items() if v}, f"dbrx_tp: the prefill dry-run counted "
+          f"{out['bounds']['prefill']['kernel_calls']}")
+    check(out["bounds"]["decode"]["kernel_calls"] == {"rmsnorm": per_step["rmsnorm"]},
+          f"dbrx_tp: the decode dry-run counted {out['bounds']['decode']['kernel_calls']}")
+
+
 # ------------------------------------------------ (f) stop + restart --
 def restart_layers(cfg, room: dict) -> int:
     """The deepest cut of ``cfg`` whose AdamW checkpoint (f32 parameters
@@ -766,8 +1070,9 @@ def main(argv=None) -> int:
     if collectives:
         run_phase("+".join(collectives), lambda: collectives_phase(collectives, smi),
                   results, failed)
-    for name, fn in (("sharded", sharded_phase), ("resnet_dp", resnet_dp_phase),
-                     ("lm_dp", lm_dp_phase), ("restart", restart_phase)):
+    for name, fn in (("sharded", sharded_phase), ("dbrx_tp", dbrx_tp_phase),
+                     ("resnet_dp", resnet_dp_phase), ("lm_dp", lm_dp_phase),
+                     ("restart", restart_phase)):
         if name in phases:
             torch.cuda.empty_cache()
             run_phase(name, lambda: fn(smi), results, failed)

@@ -178,6 +178,7 @@ exits non-zero, printing no result, when there is no CUDA device.
 """
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
 import json
@@ -193,7 +194,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -571,6 +574,12 @@ OWN_TOKEN_SHARE_MIN = 0.99
 DANUBE_ARCH = "h2o-danube-1.8b"
 DANUBE_LONG = (1, 8192)
 DANUBE_CUT_WINDOW, DANUBE_CUT_SHAPE = 64, (2, 256)
+# dbrx-132b (131.6 B parameters, 263 GB of bf16 experts) is served on a
+# (1, 4) ("data", "model") mesh of four cards by chip_nccl.py's dbrx_tp
+# phase: the kernel phase holds its rmsnorm width (d = 6,144: the wide
+# route in bf16, the general one in f32) and one rank's attention (12 of
+# its 48 heads) against the plain versions here, on one card.
+TP_ARCH, TP_RANKS = "dbrx-132b", 4
 # The LM job under the paper's exchange (lm_dp phase): qwen2.5-3b at full
 # published width cut from 36 layers to LM_DP_LAYERS (four full-width ranks
 # of 36 layers do not share one 80 GB card: one alone peaks at 67.8 GB in
@@ -612,6 +621,9 @@ LM_DP = dp.DPRun(cfg=dataclasses.replace(get_config(ARCH), n_layers=LM_DP_LAYERS
 LM_DP_UPDATE_LIMIT = 0.1
 
 
+DEVICE_MS_CALLS = 20  # profiled calls of each kernel, plain version and library call
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
@@ -639,27 +651,37 @@ def time_ms(fn, arg_sets, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_times(fn, n: int) -> tuple[dict[str, float], int, dict]:
+def device_events(fn, n: int) -> list:
+    """The device timeline of n calls of fn under torch.profiler: its
+    kernels, and the user annotations it mirrors there."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def is_annotation(e) -> bool:
+    return bool(getattr(e, "is_user_annotation", False))
+
+
+def kernel_times(fn, n: int, events: list | None = None
+                 ) -> tuple[dict[str, float], int, dict]:
     """Device time by kernel name (us) and the number of kernels over n
-    calls of fn, from torch.profiler's CUDA events, and a listing of the
-    device events per call: count, time and streams of each name.
+    calls of fn, from torch.profiler's CUDA events (``events``, when the
+    calls were profiled already), and a listing of the device events per
+    call: count, time and streams of each name.
 
     User annotations (``record_function`` ranges that the profiler mirrors
     on the device timeline, such as ``Optimizer.step#SGD.step``) span the
     kernels launched inside them: they are listed, marked, and not added,
     or each such kernel would count twice."""
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
     by_name: dict[str, float] = {}
     listing: dict[str, dict] = {}
     n_kernels = 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+    for e in device_events(fn, n) if events is None else events:
         us = e.time_range.elapsed_us()
-        annotation = bool(getattr(e, "is_user_annotation", False))
+        annotation = is_annotation(e)
         row = listing.setdefault(e.name[:80], {
             "per_call": 0.0, "us_per_call": 0.0, "streams": [],
             "annotation": annotation})
@@ -674,13 +696,43 @@ def kernel_times(fn, n: int) -> tuple[dict[str, float], int, dict]:
     return by_name, n_kernels, listing
 
 
-def device_ms(fn, arg_sets, iters: int = 20) -> tuple[float | None, dict]:
-    """Summed device time of the kernels of one fn(*args) call, and the
-    listing of its device events (``kernel_times``)."""
+CALL_RANGE = "chip_smoke.device_ms"
+
+
+def device_ms(fn, arg_sets, iters: int = 20) -> tuple[float | None, dict, int | None]:
+    """Device time of the kernels of one fn(*args) call, the listing of
+    its device events (``kernel_times``) and ``calls_seen``: the calls
+    whose kernels the profiler kept. Each call runs in a
+    ``record_function`` range, mirrored on the device timeline around its
+    kernels; the time is the kernels' inside the ranges that hold any,
+    over the number of those ranges. The profiler may keep the events of
+    only some calls (2 of 20 SDPA calls in one run), so the calls made
+    are no divisor. With no range on the device timeline, calls_seen is
+    None and the divisor is the calls made."""
     it = iter(range(iters))
-    by_name, n_kernels, listing = kernel_times(
-        lambda: fn(*arg_sets[next(it) % len(arg_sets)]), iters)
-    return (sum(by_name.values()) / iters / 1e3 if n_kernels else None), listing
+
+    def call():
+        i = next(it)
+        with record_function(CALL_RANGE):
+            fn(*arg_sets[i % len(arg_sets)])
+
+    events = device_events(call, iters)
+    by_name, n_kernels, listing = kernel_times(None, iters, events)
+    ranges = sorted((e.time_range.start, e.time_range.end) for e in events
+                    if is_annotation(e) and e.name == CALL_RANGE)
+    if not ranges:
+        return (sum(by_name.values()) / iters / 1e3 if n_kernels else None), listing, None
+    starts = [a for a, _ in ranges]
+    us, held = [0.0] * len(ranges), [0] * len(ranges)
+    for e in events:
+        if is_annotation(e):
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start <= ranges[i][1]:
+            us[i] += e.time_range.elapsed_us()
+            held[i] += 1
+    seen = sum(1 for h in held if h)
+    return (sum(us) / seen / 1e3 if seen else None), listing, seen
 
 
 def copies(make, nbytes: int) -> list:
@@ -816,17 +868,19 @@ def backward_compare(gen, call, case, dtype, grouped: bool = False) -> float:
 
 def timings(kernel, plain, library, sets) -> dict:
     """Per call: the summed device time of its kernels (``*ms``, from the
-    profiler; the CUDA-event time if the profiler saw no kernel), the
-    CUDA-event time of back-to-back calls, host gaps included
+    profiler, over the calls whose kernels it kept, ``*calls_seen`` of
+    ``*calls_made``; the CUDA-event time if the profiler saw no kernel),
+    the CUDA-event time of back-to-back calls, host gaps included
     (``*host_ms``), and the device events the profiler saw
     (``*device_events``)."""
     out = {}
     for key, fn in (("", kernel), ("plain_", plain), ("library_", library)):
         host = time_ms(fn, sets)
-        dev, listing = device_ms(fn, sets)
+        dev, listing, seen = device_ms(fn, sets, DEVICE_MS_CALLS)
         out[f"{key}ms"] = host if dev is None else dev
         out[f"{key}host_ms"] = host
         out[f"{key}device_events"] = listing
+        out[f"{key}calls_seen"], out[f"{key}calls_made"] = seen, DEVICE_MS_CALLS
     return out
 
 
@@ -978,6 +1032,12 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
                                            True, bf16))
         if "f32" in DENSE_GATED.get(arch, ()):
             swa_compare(gen, b * c.n_heads, s, c.d_head, None, True, f32)
+    # dbrx-132b's attention on one rank of chip_nccl.py's 4-way model axis
+    # (12 of its 48 heads), in both routes: its f32 run is the gated one
+    tp = get_config(TP_ARCH)
+    tp_case = (b * tp.n_heads // TP_RANKS, s, tp.d_head, None, True)
+    swa_err = max(swa_err, swa_compare(gen, *tp_case, bf16))
+    swa_compare(gen, *tp_case, f32)
     # danube's [1, 8192] prefill under its native window in both routes
     # (the plain version's f32 scores take 8.6 GB; the card is still
     # nearly empty)
@@ -997,11 +1057,11 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
             rms_compare(gen, shape, f32, grouped=True)
             rms_err = max(rms_err, rms_compare(gen, shape, bf16, grouped=True))
     # every [D] width of the main paths (mamba2 and qwen2-vl 1536, qwen2.5,
-    # qwen3-moe and gemma 2048, danube 2560, jamba 4096, qwen2.5-14b 5120) at
-    # decode and prefill rows, in bf16 and f32 (the f32-activation runs),
-    # and the route each width takes
+    # qwen3-moe and gemma 2048, danube 2560, jamba 4096, qwen2.5-14b 5120,
+    # dbrx-132b 6144) at decode and prefill rows, in bf16 and f32 (the
+    # f32-activation runs), and the route each width takes
     widths = sorted({get_config(a).d_model for a in (ARCH, MOE_ARCH, VLM_ARCH, SSM_ARCH,
-                                                     HYBRID_ARCH, *DENSE_PARAMS)})
+                                                     HYBRID_ARCH, *DENSE_PARAMS, TP_ARCH)})
     for d in widths:
         for rows in (SERVE["batch"], b * s):
             rms_compare(gen, (rows, d), f32)
@@ -1073,7 +1133,7 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
     print(f"kernel phase: the three kernels agree with their plain versions at "
           f"{n_rms} rmsnorm (8 with a [G, D] weight; routes at the edges "
           f"{json.dumps(edge_routes)}), "
-          f"{(len(SWA_SWEEP) + len(SWA_CROSS_SWEEP)) * 2 + 6 + len(DENSE_PARAMS) + n_f32} "
+          f"{(len(SWA_SWEEP) + len(SWA_CROSS_SWEEP)) * 2 + 8 + len(DENSE_PARAMS) + n_f32} "
           f"swa_attention "
           f"({len(SWA_CROSS_SWEEP) * 2} of them with Sq != Sk or an offset) and "
           f"{4 + 2 * len(SGD_SWEEP) + 3} fused_sgd_update cases (4 at n = "
@@ -1169,9 +1229,27 @@ ZEROED = {"no_cache": lambda path: path != "enc",
           "enc_zeroed": lambda path: path == "enc"}
 
 
+def whole(t):
+    """A DTensor gathered into the whole tensor on every rank; any other
+    tensor as it is."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def rows_of(t, dim: int, start: int, n: int):
+    """Rows [start, start + n) of dim ``dim`` of ``t``, as a view; of a
+    DTensor, the part of them its local shard holds."""
+    if not isinstance(t, DTensor):
+        return t.narrow(dim, start, n)
+    shape, offset = compute_local_shape_and_global_offset(t.shape, t.device_mesh,
+                                                          t.placements)
+    lo, hi = max(start, offset[dim]), min(start + n, offset[dim] + shape[dim])
+    return t.to_local().narrow(dim, lo - offset[dim], max(0, hi - lo))
+
+
 def decode_vs_prefill(decode, model, params, tokens, logits, n: int,
                       fault: str | None = None, cache_dtype=torch.bfloat16,
-                      enc: torch.Tensor | None = None, controls: tuple[str, ...] = ()) -> dict:
+                      enc: torch.Tensor | None = None, controls: tuple[str, ...] = (),
+                      sh: mlayers.Sharder = mlayers.NO_SHARD) -> dict:
     """Step the decoder over the first n prompt tokens and compare each
     step's logits with the prefill's at that position. ``enc``: whisper's
     encoder output, written into the cache's ``enc`` before the first step.
@@ -1190,15 +1268,21 @@ def decode_vs_prefill(decode, model, params, tokens, logits, n: int,
     step is host-bound: three times the rows cost about what one does);
     their readings over the first CONTROL_POSITIONS positions are returned
     under "controls".
+
+    ``sh``: on a mesh, ``decode`` is the sharded step, the cache is made
+    of DTensors by the rules and each step's logits are gathered.
     """
     b, groups = tokens.shape[0], (fault, *controls)
     g = len(groups)
     specs = model.cache_specs(InputShape("d", tokens.shape[1], g * b, "decode"), cache_dtype)
-    cache = pspec.init_params(None, specs, DEVICE)
+    if sh.mesh is None:
+        cache = pspec.init_params(None, specs, DEVICE)
+    else:
+        cache = pspec.distributed(specs, sh.mesh, sh.rules, DEVICE)
     if enc is not None:
         cache["enc"].copy_(enc.repeat(g, 1, 1))
     # the cache rows each group's fault zeroes before every step
-    zeroed = [c.narrow(spec.axes.index("batch"), i * b, b)
+    zeroed = [rows_of(c, spec.axes.index("batch"), i * b, b)
               for i, f in enumerate(groups) if f in ZEROED
               for (path, c), spec in zip(pspec.flatten(cache).items(),
                                          pspec.flatten(specs).values())
@@ -1212,7 +1296,7 @@ def decode_vs_prefill(decode, model, params, tokens, logits, n: int,
         step, cache = decode(params, cache, {
             "tokens": rows[:, t:t + 1],
             "pos": torch.tensor(pos, dtype=torch.int32, device=DEVICE)})
-        by_group = step[:, 0].view(g, b, -1)
+        by_group = whole(step)[:, 0].view(g, b, -1)
         argmax.append(by_group.argmax(-1))
         diff.append((by_group - logits[None, :, t]).abs().amax(-1))
         finite.append(torch.isfinite(by_group).flatten(1).all(-1))
@@ -1254,10 +1338,12 @@ def decode_gate(r: dict) -> bool:
             and r["argmax_agree"] >= DECODE_AGREE_MIN)
 
 
-def prefill_vs_plain(model, params, batch, window: int | None = None) -> dict:
+def prefill_vs_plain(model, params, batch, window: int | None = None,
+                     sh: mlayers.Sharder = mlayers.NO_SHARD) -> dict:
     """A counted prefill through the kernels (time, launches), then the
-    same prefill through the plain versions: the bf16 contract's readings."""
-    prefill = make_prefill(model, window=window, device=DEVICE)
+    same prefill through the plain versions: the bf16 contract's readings.
+    ``sh``: on a mesh, both run sharded and their logits are gathered."""
+    prefill = make_prefill(model, sh, window=window, device=DEVICE)
     prefill(params, {k: v[:, :64] for k, v in batch.items()})  # warm-up
     ops.reset_launch_counts()
     t0 = sync_time()
@@ -1265,8 +1351,9 @@ def prefill_vs_plain(model, params, batch, window: int | None = None) -> dict:
     seconds = sync_time() - t0
     counts = ops.launch_counts()
     grouped = rms_kernel.rmsnorm.grouped_launches
+    logits = whole(logits)
     with plain_versions():
-        plain = prefill(params, batch)
+        plain = whole(prefill(params, batch))
     b, s = batch["tokens"].shape
     return {"logits": logits, "plain": plain, "seconds": seconds,
             "tokens_per_s": b * s / seconds, "launches": counts,
@@ -1388,7 +1475,8 @@ def recording_routes(into: list):
     inner = moe_module.moe_ffn
 
     def recorded(cfg, p, x, sh):
-        logits = torch.einsum("bsd,de->bse", x, p["router"].to(x.dtype)).float()
+        xs, router = whole(x), whole(p["router"])
+        logits = torch.einsum("bsd,de->bse", xs, router.to(x.dtype)).float()
         into.append(moe_module._top_k(torch.softmax(logits, -1), cfg.top_k)[1])
         return inner(cfg, p, x, sh)
 
@@ -1815,7 +1903,7 @@ def f32_activations():
     inner = mlayers.embed_tokens
 
     def embed_f32(embedding, tokens, scale=None):
-        x = embedding[tokens.long()].float()
+        x = mlayers.lookup(embedding, tokens).float()  # a DTensor on its shards
         return x * scale if scale is not None else x
 
     mlayers.embed_tokens = embed_f32

@@ -21,22 +21,29 @@ import argparse
 import time
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.shapes import InputShape
 from repro_torch.data.synthetic import TokenStream
 from repro_torch.engine.steps import make_decode_step, resolve_device
 from repro_torch.models import spec as pspec
+from repro_torch.models.layers import NO_SHARD, Sharder
 from repro_torch.models.registry import build_model, decode_window
 
 
 def serve(cfg, *, batch: int, prompt_len: int, new_tokens: int,
           params=None, greedy: bool = True, log: bool = True, device="cuda",
-          generator: torch.Generator | None = None, return_logits: bool = False):
+          generator: torch.Generator | None = None, return_logits: bool = False,
+          sh: Sharder = NO_SHARD):
     """Greedy-decode ``new_tokens`` after TokenStream(seed=3) prompts.
 
     params: the port's parameter tree on ``device``, or None for random
     weights drawn from ``generator`` (default: seed 0 on ``device``).
+    ``sh``: a Sharder with a mesh serves on it: ``params`` are DTensors
+    (``models.spec.init_local``), the cache is sharded by the rules, and
+    every rank of the mesh gathers each step's logits and takes the same
+    tokens.
     ``greedy`` and ``log`` are the reference's: decoding always takes the
     argmax, as in the reference, whatever ``greedy`` says; ``log`` prints
     the ``generated ... tok/s`` line.
@@ -46,18 +53,23 @@ def serve(cfg, *, batch: int, prompt_len: int, new_tokens: int,
     dev = resolve_device(device)
     model = build_model(cfg)
     if params is None:
+        if sh.mesh is not None:
+            raise ValueError("serve on a mesh takes its params as DTensors")
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         params = model.init(generator, dev)
     cache_len = prompt_len + new_tokens
     shape = InputShape("serve", cache_len, batch, "decode")
-    cache = pspec.init_params(generator, model.cache_specs(shape), dev)
+    if sh.mesh is None:
+        cache = pspec.init_params(generator, model.cache_specs(shape), dev)
+    else:
+        cache = pspec.distributed(model.cache_specs(shape), sh.mesh, sh.rules, dev)
     window = decode_window(cfg, cache_len)
 
     data = TokenStream(cfg.vocab_size, prompt_len, seed=3)
     prompts = torch.as_tensor(data.batch(0, batch)["tokens"], device=dev)
 
-    decode = make_decode_step(model, window=window, device=dev)
+    decode = make_decode_step(model, sh, window=window, device=dev)
 
     # prefill by stepping the decoder over the prompt (cache-building path;
     # the whole-sequence prefill is make_prefill)
@@ -68,6 +80,8 @@ def serve(cfg, *, batch: int, prompt_len: int, new_tokens: int,
         batch_t = {"tokens": tok,
                    "pos": torch.full((batch,), t, dtype=torch.int32, device=dev)}
         logits, cache = decode(params, cache, batch_t)
+        if isinstance(logits, DTensor):
+            logits = logits.full_tensor()
         if t + 1 < prompt_len:
             tok = prompts[:, t + 1:t + 2]       # teacher-forced prompt
         else:

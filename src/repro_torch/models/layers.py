@@ -222,8 +222,19 @@ def decode_attention(q, k_cache, v_cache, pos, *, window: int | None = None,
     ``repeated``); pos: [B] int — number of valid tokens already in the
     cache (the new token occupies slot ``pos``). Scores and the product
     with V accumulate in f32; the softmax weights are rounded to q's dtype
-    in between, as in the reference.
+    in between, as in the reference. DTensors run on their local shards:
+    every op here is per (row, head), so the batch and head shards of q
+    stay as they are, with S and D whole.
     """
+    if isinstance(q, DTensor):
+        q = ops._whole(q, (1, 3))
+        place = tuple(q.placements)
+        rows = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                     for p in place)
+        places = (place, place, place, rows)
+        return ops.on_local_shards_as(
+            lambda *t: decode_attention(*t, window=window, repeated=repeated),
+            (q, k_cache, v_cache, pos), places, places, place)
     b, s, hkv, d = k_cache.shape
     h = q.shape[2]
     if repeated:
@@ -305,19 +316,36 @@ def index_select(t, dim: int, index):
 
 def lookup(table, ids):
     """The rows of ``table`` at ``ids`` (an embedding). DTensors run on
-    local shards: the table whole on every rank, the output sharded as
-    ``ids``; the table's local gradient is a pending sum over the mesh dims
-    that split ``ids``."""
+    local shards. Over a mesh dim that splits the table's rows (the vocab)
+    and not ``ids``, each rank looks up the ids its rows hold, zeros for
+    the others, and the output is a pending sum over that dim (one
+    all-reduce of the output where it is read, instead of gathering the
+    table); over the other mesh dims the table is whole and the output is
+    sharded as ``ids``, the table's local gradient a pending sum over the
+    dims that split ``ids``."""
     if not isinstance(table, DTensor):
         return table[ids.long()]
     from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
     ids = ops._whole(ids, ())
     place = tuple(ids.placements)
-    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in place]
-    return ops.on_local_shards_as(lambda t, i: t[i.long()], (table, ids),
-                                  ([Replicate()] * len(place), place),
-                                  (grad, place), place)
+    split = [isinstance(pt, Shard) and pt.dim == 0 and not isinstance(pi, Shard)
+             for pt, pi in zip(table.placements, place)]
+    rows = [Shard(0) if s else Replicate() for s in split]
+    out = [Partial() if s else pi for s, pi in zip(split, place)]
+    grad = [Shard(0) if s else Partial() if isinstance(pi, Shard) else Replicate()
+            for s, pi in zip(split, place)]
+    (n, _), (first, _) = compute_local_shape_and_global_offset(
+        table.shape, table.device_mesh, rows)
+
+    def local(t, i):
+        j = i.long() - first
+        held = (j >= 0) & (j < n)
+        return t[j.clamp(0, n - 1)] * held[..., None].to(t.dtype)
+
+    return ops.on_local_shards_as(local, (table, ids), (rows, place), (grad, place),
+                                  tuple(out))
 
 
 def embed_tokens(embedding, tokens, scale: float | None = None):

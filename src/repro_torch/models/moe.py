@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -121,6 +122,33 @@ def _combine(eo, idx, live, gate):
     return (gathered * w[..., None]).reshape(B, S, K, D).sum(dim=2)
 
 
+def _combine_held(eo, idx, live, gate):
+    """``_combine`` where each rank holds some of the experts: over the
+    mesh dims that split eo's experts, each rank sums the gate-weighted
+    outputs of its own experts (an assignment to another rank's expert
+    adds zero) and the output is a pending sum over those dims, one
+    all-reduce of [B, S, D] where it is read instead of a gather of
+    [B, E, C, D]. The expert weights and their products stay on their
+    ranks."""
+    if not isinstance(eo, DTensor):
+        return _combine(eo, idx, live, gate)
+    eo = ops._whole(eo, (2, 3))
+    place = tuple(eo.placements)
+    held = [isinstance(p, Shard) and p.dim == 1 for p in place]
+    rows = [Shard(0) if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in place]
+    out = [Partial() if h else r for h, r in zip(held, rows)]
+    (_, n, C, _), (_, first, _, _) = compute_local_shape_and_global_offset(
+        eo.shape, eo.device_mesh, place)
+
+    def local(eo_l, idx_l, live_l, gate_l):
+        slot = idx_l - first * C
+        mine = (slot >= 0) & (slot < n * C)
+        return _combine(eo_l, slot.clamp(0, n * C - 1), live_l & mine, gate_l)
+
+    return ops.on_local_shards_as(local, (eo, idx, live, gate), (place, rows, rows, rows),
+                                  (place, rows, rows, out), tuple(out))
+
+
 def _batch_local(fn, *ts):
     """``fn`` on each rank's own batch rows: DTensors run on their local
     shards with every dim but the batch dim whole (the dispatch is
@@ -160,5 +188,5 @@ def moe_ffn(cfg: ModelConfig, p, x, sh):
     eo = sh(eo, "batch", "experts", "capacity", "embed")
 
     # ---- combine ---------------------------------------------------------
-    out = _batch_local(_combine, eo, idx, live, gate)
+    out = _combine_held(eo, idx, live, gate)
     return out.to(dt), aux

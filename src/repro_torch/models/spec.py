@@ -67,32 +67,43 @@ def n_params(tree: dict) -> int:
 _MAX_DRAW = 1 << 31
 
 
-def _init_one(gen: torch.Generator, s: TensorSpec, device) -> torch.Tensor:
-    if s.init == "zeros":
-        return torch.zeros(s.shape, dtype=s.dtype, device=device)
-    if s.init == "ones":
-        return torch.ones(s.shape, dtype=s.dtype, device=device)
+def _std(s: TensorSpec) -> float:
+    """The standard deviation of a random leaf, from its spec's (global)
+    shape."""
     if s.init == "embed":
-        std = s.scale / math.sqrt(s.shape[-1])
-    elif s.init == "normal":
-        std = s.scale
-    elif s.init == "fan_in":
+        return s.scale / math.sqrt(s.shape[-1])
+    if s.init == "normal":
+        return s.scale
+    if s.init == "fan_in":
         # fan-in = product of all dims except the last output dim; for
         # stacked-layer params ignore the leading "layers" dim.
         dims = list(s.shape)
         fan_dims = dims[1:-1] if s.axes and s.axes[0] == "layers" else dims[:-1]
         fan_in = max(1, int(np.prod(fan_dims)) if fan_dims else dims[-1])
-        std = s.scale / math.sqrt(fan_in)
-    else:
-        raise ValueError(f"unknown init {s.init!r}")
-    if math.prod(s.shape) <= _MAX_DRAW:
-        x = torch.randn(s.shape, generator=gen, device=device, dtype=torch.float32)
+        return s.scale / math.sqrt(fan_in)
+    raise ValueError(f"unknown init {s.init!r}")
+
+
+def _draw(gen: torch.Generator, s: TensorSpec, shape, device) -> torch.Tensor:
+    """A leaf of ``shape`` (the spec's, or a local shard's) drawn as the
+    spec ``s`` says, with the standard deviation of ``s``."""
+    if s.init == "zeros":
+        return torch.zeros(shape, dtype=s.dtype, device=device)
+    if s.init == "ones":
+        return torch.ones(shape, dtype=s.dtype, device=device)
+    std = _std(s)
+    if math.prod(shape) <= _MAX_DRAW:
+        x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
         return (x * std).to(s.dtype)
-    out = torch.empty(s.shape, dtype=s.dtype, device=device)
+    out = torch.empty(shape, dtype=s.dtype, device=device)
     for part in out:
         part.copy_(torch.randn(part.shape, generator=gen, device=device,
                                dtype=torch.float32) * std)
     return out
+
+
+def _init_one(gen: torch.Generator, s: TensorSpec, device) -> torch.Tensor:
+    return _draw(gen, s, s.shape, device)
 
 
 class FlatTree(dict):
@@ -247,3 +258,36 @@ def distributed(tree: dict, mesh, rules, device) -> dict:
     shards = tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device),
                       local)
     return as_dtensors(shards, tree, mesh, rules)
+
+
+def init_local(seed: int, tree: dict, mesh, rules, device) -> dict:
+    """A seeded random spec tree as DTensors on ``mesh`` (a DeviceMesh),
+    each rank drawing only its own local shards: no rank ever holds a
+    global leaf (dbrx-132b's are 263 GB in bf16).
+
+    Each leaf is drawn in the local shape the rules give, with the
+    standard deviation of its global spec (a fan-in read from the local
+    shape would count only the local heads or experts). Its generator is
+    seeded by ``seed``, the leaf's path and the global offset of the
+    rank's shard, so ranks that hold the same shard (on mesh dims the
+    leaf is replicated over) draw the same values, and ranks that hold
+    different shards draw different ones. On ``meta`` nothing is drawn."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.sharding.rules import placements
+
+    m = abstract_mesh(mesh)
+    shards = {}
+    for path, s in flatten(tree).items():
+        place = placements(rules.spec_for(s.axes, s.shape, m), m)
+        shape, offset = compute_local_shape_and_global_offset(s.shape, mesh, place)
+        if torch.device(device).type == "meta":
+            shards[path] = torch.empty(shape, dtype=s.dtype, device="meta")
+            continue
+        name = path.encode()
+        key = np.random.SeedSequence([seed, len(name), *name, *offset])
+        gen = torch.Generator(device=device).manual_seed(
+            int(key.generate_state(1, np.uint64)[0]))
+        shards[path] = _draw(gen, s, shape, device)
+    return as_dtensors(unflatten(shards), tree, mesh, rules)

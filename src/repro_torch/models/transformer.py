@@ -17,9 +17,12 @@ import math
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import InputShape
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.spec import TensorSpec as TS, init_flat, init_params
@@ -65,14 +68,52 @@ def mlp_specs(cfg: ModelConfig, n: int, dtype: torch.dtype) -> dict:
             "wo_bias": TS((Lx, D), ("layers", "embed"), dtype, init="zeros")}
 
 
+def _kv_head_of(n_heads: int, n_padded: int, n_kv_heads: int) -> list[int]:
+    """KV head of each (possibly padded) Q head, as the reference maps it."""
+    return [min(h, n_heads - 1) * n_kv_heads // n_heads for h in range(n_padded)]
+
+
 @functools.lru_cache(maxsize=16)
 def _head_map(n_heads: int, n_padded: int, n_kv_heads: int,
               device: torch.device) -> torch.Tensor:
-    """KV head of each (possibly padded) Q head, as the reference maps it;
-    read-only, kept per device so that a decode step copies nothing."""
-    return torch.tensor([min(h, n_heads - 1) * n_kv_heads // n_heads
-                         for h in range(n_padded)], dtype=torch.long,
+    """``_kv_head_of`` as a tensor; read-only, kept per device so that a
+    decode step copies nothing."""
+    return torch.tensor(_kv_head_of(n_heads, n_padded, n_kv_heads), dtype=torch.long,
                         device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _local_head_map(n_heads: int, n_padded: int, n_kv_heads: int, q_heads: tuple,
+                    kv_heads: tuple, device: torch.device) -> torch.Tensor | None:
+    """The KV head of each of one rank's Q heads (``q_heads``: its first
+    and count), counted from its first KV head (``kv_heads`` likewise);
+    None unless each of those Q heads reads a KV head the rank holds."""
+    part = [k - kv_heads[0] for k in
+            _kv_head_of(n_heads, n_padded, n_kv_heads)[q_heads[0]:sum(q_heads)]]
+    if not all(0 <= k < kv_heads[1] for k in part):
+        return None
+    return torch.tensor(part, dtype=torch.long, device=device)
+
+
+def _kv_for_heads(cfg: ModelConfig, kv, q):
+    """``kv [B, S, Hkv, D]`` with the KV head of each Q head of ``q``:
+    ``kv.index_select(2, head_map)``. DTensors whose heads are split alike,
+    with every GQA group inside one rank's shard (dbrx-132b on a 4-way
+    "model" axis: rank r holds Q heads 12r to 12r + 11 and KV heads 2r
+    and 2r + 1), select on their local shards, moving nothing; otherwise
+    the KV heads are made whole first."""
+    H_real, H_pad = cfg.n_heads, (cfg.pad_heads_to or cfg.n_heads)
+    if (isinstance(kv, DTensor) and isinstance(q, DTensor)
+            and tuple(kv.placements) == tuple(q.placements)):
+        (qs, qo), (ks, ko) = (compute_local_shape_and_global_offset(
+            t.shape, t.device_mesh, t.placements) for t in (q, kv))
+        local = _local_head_map(H_real, H_pad, cfg.n_kv_heads, (qo[2], qs[2]),
+                                (ko[2], ks[2]), kv.device)
+        if local is not None:
+            place = tuple(kv.placements)
+            return ops.on_local_shards_as(lambda t: t.index_select(2, local), (kv,),
+                                          (place,), (place,), place)
+    return L.index_select(kv, 2, _head_map(H_real, H_pad, cfg.n_kv_heads, kv.device))
 
 
 def attention(cfg: ModelConfig, p, x, positions, sh, *,
@@ -102,18 +143,15 @@ def attention(cfg: ModelConfig, p, x, positions, sh, *,
     # Padded heads (pad_heads_to) keep the real heads' q->kv mapping through
     # an explicit gather and are hard-masked to zero output.
     H_real, H_pad = cfg.n_heads, (cfg.pad_heads_to or cfg.n_heads)
-    head_map = _head_map(H_real, H_pad, cfg.n_kv_heads, x.device)
     if cache is not None:
         k_cache, v_cache = cache
         L.write_slot(k_cache, k[:, 0], pos)
         L.write_slot(v_cache, v[:, 0], pos)
         attn = L.decode_attention(
-            q, L.index_select(k_cache.to(dt), 2, head_map),
-            L.index_select(v_cache.to(dt), 2, head_map),
-            pos, window=window, repeated=True)
+            q, _kv_for_heads(cfg, k_cache.to(dt), q),
+            _kv_for_heads(cfg, v_cache.to(dt), q), pos, window=window, repeated=True)
     else:
-        attn = L.chunked_attention(q, L.index_select(k, 2, head_map),
-                                   L.index_select(v, 2, head_map),
+        attn = L.chunked_attention(q, _kv_for_heads(cfg, k, q), _kv_for_heads(cfg, v, q),
                                    causal=causal, window=window)
     if H_pad != H_real:
         mask = (torch.arange(H_pad, device=x.device) < H_real).to(dt)
