@@ -950,7 +950,7 @@ def first(lines, pattern: str):
     raise RuntimeError(f"restart: no line matches {pattern!r}")
 
 
-STEP_LINE = r"step +(\d+) loss (\S+) lr (\S+) tok/s"
+STEP_LINE = r"step +(\d+) loss (\S+) lr (\S+)"
 
 
 def restart_phase(smi: list[str]) -> dict:

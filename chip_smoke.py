@@ -141,9 +141,8 @@
    steps (finite losses, the mean of the last 5 below the first, exactly
    73 rmsnorm and 36 swa_attention launches a step and no
    fused_sgd_update), the step time, tokens/s and peak memory, a profile
-   of 2 steps, the f32 lm_logits products timed alone, and an exact-resume
-   check at the smoke config (5 + 5 steps through the CheckpointStore
-   against 10);
+   of 2 steps, and an exact-resume check at the smoke config (5 + 5 steps
+   through the CheckpointStore against 10);
 14. dp phase: data-parallel ResNet-110 at full size through
    ``launch.explicit_allreduce``: 4 ranks, each its own process with its
    own CUDA context on the one card, 128 images each (global batch 512,
@@ -2807,35 +2806,6 @@ def lm_step_vs_plain(model, params, batch: dict, leaf: str = "layers/mlp/wo") ->
     return out
 
 
-def lm_logits_ms(x_shape, unembed: torch.Tensor, iters: int = 5) -> float:
-    """CUDA-event time of the f32 lm_logits product and its two backward
-    products (no TF32) at the train step's shape, alone."""
-    gen = torch.Generator(device=DEVICE).manual_seed(5)
-    x = randn(gen, x_shape, torch.bfloat16).requires_grad_()
-    w = unembed.detach().requires_grad_()
-    cot = randn(gen, (*x_shape[:-1], unembed.shape[0]), torch.float32)
-
-    def fwd_bwd():
-        torch.autograd.grad(mlayers.lm_logits(x, w), (x, w), cot)
-
-    return time_ms(fwd_bwd, [()], iters)
-
-
-def lm_backward_formulas_ms(cfg) -> dict:
-    """CUDA-event time of the rmsnorm and swa_attention backward formulas
-    at the train step's shapes, times their calls a step (73 and 36)."""
-    gen = torch.Generator(device=DEVICE).manual_seed(6)
-    bf16, rows = torch.bfloat16, LM["batch"] * LM["seq"]
-    x, g = (randn(gen, (rows, cfg.d_model), bf16) for _ in range(2))
-    w = randn(gen, (cfg.d_model,), torch.float32, 0.1)
-    qkvo = [randn(gen, (LM["batch"] * cfg.n_heads, LM["seq"], cfg.d_head), bf16)
-            for _ in range(4)]
-    return {"rmsnorm": (2 * cfg.n_layers + 1) * time_ms(
-                lambda: ops.rmsnorm_backward(x, w, g), [()], 20),
-            "swa_attention": cfg.n_layers * time_ms(
-                lambda: ops.swa_attention_backward(*qkvo), [()], 20)}
-
-
 def lm_exact_resume(root: Path) -> dict:
     """At the smoke config: LM_RESUME[0] steps, a checkpoint of {params,
     opt}, a restore into a state drawn from another seed and LM_RESUME[1]
@@ -2900,15 +2870,8 @@ def lm_train_phase(smi: str) -> dict:
     profile_ = device_profile(
         lambda: step(state, data.batch(next(more), LM["batch"]), sched(LM["steps"] - 1)),
         2, LM_KERNEL_GROUPS)
-    logits_ms = lm_logits_ms((LM["batch"], LM["seq"], cfg.d_model),
-                             state["params"]["unembed"])
     busy = profile_["device_busy_ms_per_call"]
-    formulas_ms = lm_backward_formulas_ms(cfg)
-    del step  # its flat gradient buffer: AdamW is timed on a zero one
-    zero = torch.zeros_like(params.flat)
-    adamw_ms = time_ms(lambda: opt.update(zero, state["opt"], state["params"], 0.0),
-                       [()], 3)
-    del state, params, zero
+    del step, state, params
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         resume = lm_exact_resume(Path(tmp))
@@ -2916,20 +2879,11 @@ def lm_train_phase(smi: str) -> dict:
     out = {"config": cfg.name, "n_params": cfg.param_count(), "batch": LM["batch"],
            "seq": LM["seq"], "steps": LM["steps"], "init_seconds": init_seconds,
            "step_vs_plain": step_check, **run, "profile": profile_,
-           "lm_logits_fwd_bwd_ms": logits_ms,
-           "lm_logits_share_of_device_busy": logits_ms / busy if busy else None,
-           "adamw_update_ms": adamw_ms,
-           "adamw_share_of_device_busy": adamw_ms / busy if busy else None,
-           "backward_formulas_ms_per_step": formulas_ms,
-           "backward_formulas_share_of_device_busy":
-               sum(formulas_ms.values()) / busy if busy else None,
            "exact_resume": resume, "card": smi}
     print(f"lm_train: {cfg.name}, {LM['steps']} steps of {tokens} tokens, step "
           f"{step_ms:.1f} ms (median of steps 2-{LM['steps']}), {tokens / (step_ms / 1e3):.0f} "
           f"tokens/s, peak memory {peak} bytes, device busy {busy} ms and idle share "
-          f"{profile_['device_idle_share']} a step, f32 lm_logits fwd+bwd "
-          f"{logits_ms:.2f} ms, AdamW update {adamw_ms:.2f} ms, backward formulas "
-          f"{json.dumps(formulas_ms)} ms a step [{smi}]", flush=True)
+          f"{profile_['device_idle_share']} a step [{smi}]", flush=True)
     print("lm_train phase: " + json.dumps(out), flush=True)
 
     per_step = {"rmsnorm": 2 * cfg.n_layers + 1, "swa_attention": cfg.n_layers,

@@ -35,6 +35,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.core import telemetry
 from repro_torch.models.spec import flatten, unflatten
 
 
@@ -139,6 +140,8 @@ def allreduce_(x: torch.Tensor, group=None, algorithm: str = "ring") -> torch.Te
     world size that is a power of two) or "psum" (``dist.all_reduce``, in
     the backend's own order). The buffer is padded with zeros to a
     multiple of the world size, as ``repro.collectives.xla._pad_to`` does.
+    Under ``core.telemetry.tracing`` each call counts ``collectives.calls``
+    and its payload's ``collectives.bytes`` (x's, unpadded).
     """
     if algorithm not in _SCHEDULES:
         raise ValueError(f"unknown all-reduce algorithm {algorithm!r}; "
@@ -149,9 +152,11 @@ def allreduce_(x: torch.Tensor, group=None, algorithm: str = "ring") -> torch.Te
     w, r = _world(group)
     if algorithm == "doubling_halving" and w & (w - 1):
         raise ValueError(f"halving-doubling needs a power-of-two world size, got {w}")
+    n = x.numel()
+    telemetry.count("collectives.calls")
+    telemetry.count("collectives.bytes", n * x.element_size())
     if w == 1:
         return x
-    n = x.numel()
     pad = 0 if algorithm == "psum" else (-n) % w
     if transport(group, x) == "gloo-host":
         buf = torch.empty(n + pad, dtype=x.dtype, pin_memory=True)

@@ -1073,3 +1073,232 @@ def format_counters(per_policy: dict[str, dict[str, int]]) -> str:
         if i == 0:
             lines.append("  ".join("-" * w for w in widths))
     return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Step tracing (the port's train step)
+# ---------------------------------------------------------------------------
+#
+# Spans and counters inside the port's train step, off unless a
+# :class:`StepTracer` is installed with :func:`tracing`.  Off, ``span()``
+# returns the shared :data:`NULL_SPAN` after one check of the module's
+# tracer and ``count()`` returns at once: no clock is read, no profiler
+# range is entered, and nothing synchronises the device.  On, each span
+# is stamped on both ends with ``time.time_ns()``, the clock that
+# ``torch.profiler``'s timeline is kept on (its trace starts at
+# ``kineto_results.trace_start_ns()``), and opens a
+# ``torch.profiler.record_function`` of its own name, so a profiler with
+# CPU activity shows it on the host and, around the kernels launched in
+# it, on the device.  Spans are kept in memory, up to ``max_spans``, and
+# written only when asked (:meth:`StepTracer.snapshot`,
+# :meth:`StepTracer.write_chrome_trace`).
+#
+#     tracer = tele.StepTracer()
+#     with tele.tracing(tracer):
+#         state, loss = step(state, batch, lr)
+#     tracer.snapshot()   # {"spans": [...], "counters": {...}, "launches": {...}}
+
+import itertools  # noqa: E402
+import threading  # noqa: E402
+import time  # noqa: E402
+
+#: the span that opens a step: its id is the ``step`` of every span inside it
+STEP_SPAN = "train.step"
+
+
+@dataclass(slots=True)
+class Span:
+    """One traced span: ``parent`` and ``step`` are span ids (None outside
+    any), ``thread`` the opening thread's native id, times in ns of
+    ``time.time_ns()`` (``end_ns`` 0 while open)."""
+
+    name: str
+    id: int
+    parent: int | None
+    step: int | None
+    thread: int
+    start_ns: int
+    end_ns: int = 0
+
+
+class _NullSpan:
+    """No-op span context; shared singleton for the disabled path."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+NULL_SPAN = _NullSpan()
+
+
+class _OpenSpan:
+    __slots__ = ("_tracer", "_name", "_span", "_range")
+
+    def __init__(self, tracer: StepTracer, name: str) -> None:
+        self._tracer = tracer
+        self._name = name
+
+    def __enter__(self) -> Span:
+        self._range = self._tracer._record_function(self._name)
+        self._range.__enter__()
+        self._span = self._tracer._open(self._name)
+        return self._span
+
+    def __exit__(self, *exc) -> bool:
+        self._tracer._close(self._span)
+        self._range.__exit__(*exc)
+        return False
+
+
+class StepTracer:
+    """Spans (a bounded in-memory list) and counters (a :class:`Registry`)
+    of the code run under :func:`tracing`.
+
+    A span opened on a thread with no span of its own open (autograd's
+    device thread, which runs the backward of CUDA tensors) takes as parent
+    the innermost open span of the thread that installed the tracer. Each
+    snapshot holds the kernels' launches (``kernels.ops.launch_counts``)
+    since the tracer was installed or last flushed.
+    """
+
+    def __init__(self, max_spans: int = 1_000_000) -> None:
+        from torch.profiler import record_function
+
+        from repro_torch.kernels.ops import launch_counts
+
+        self._record_function = record_function
+        self._launch_counts = launch_counts
+        self.max_spans = int(max_spans)
+        self.spans: list[Span] = []
+        self.dropped = 0
+        self.registry = Registry()
+        self.owner: int | None = None
+        self._ids = itertools.count()
+        self._stacks: dict[int, list[Span]] = {}
+        # each thread's native id and open spans, read without a system
+        # call (get_native_id is one) on every span
+        self._local = threading.local()
+        self._launch_base: dict[str, int] = {}
+
+    def span(self, name: str) -> _OpenSpan:
+        return _OpenSpan(self, name)
+
+    def count(self, name: str, k: int = 1) -> None:
+        self.registry.counter(name).inc(k)
+
+    def _open(self, name: str) -> Span:
+        local = self._local
+        if not hasattr(local, "stack"):
+            local.thread, local.stack = threading.get_native_id(), []
+            self._stacks[local.thread] = local.stack
+        thread, stack = local.thread, local.stack
+        if stack:
+            parent = stack[-1]
+        else:
+            home = self._stacks.get(self.owner) if thread != self.owner else None
+            parent = home[-1] if home else None
+        sid = next(self._ids)
+        step = sid if name == STEP_SPAN else (parent.step if parent else None)
+        s = Span(name, sid, parent.id if parent else None, step, thread,
+                 time.time_ns())
+        stack.append(s)
+        if len(self.spans) < self.max_spans:
+            self.spans.append(s)
+        else:
+            self.dropped += 1
+        return s
+
+    def _close(self, s: Span) -> None:
+        s.end_ns = time.time_ns()
+        self._stacks[s.thread].pop()
+
+    def install(self) -> None:
+        """Make the calling thread the tracer's home and start counting
+        launches from here."""
+        self.owner = threading.get_native_id()
+        self._launch_base = dict(self._launch_counts())
+
+    def snapshot(self) -> dict:
+        """The spans closed so far, the counters and the kernel launches
+        since the tracer was installed or last flushed, as plain data."""
+        now = self._launch_counts()
+        return {"owner": self.owner, "dropped": self.dropped,
+                "spans": [dict(name=s.name, id=s.id, parent=s.parent, step=s.step,
+                               thread=s.thread, start_ns=s.start_ns, end_ns=s.end_ns)
+                          for s in self.spans if s.end_ns],
+                "counters": self.registry.counters(),
+                "launches": {k: n - self._launch_base.get(k, 0) for k, n in now.items()}}
+
+    def flush(self) -> dict:
+        """:meth:`snapshot`, then start afresh: closed spans dropped,
+        counters zeroed, launches counted from here."""
+        snap = self.snapshot()
+        self.spans = [s for s in self.spans if not s.end_ns]
+        self.dropped = 0
+        self.registry = Registry()
+        self._launch_base = dict(self._launch_counts())
+        return snap
+
+    def chrome_events(self, base_ns: int = 0) -> list[dict]:
+        """The closed spans as Chrome trace-event complete events ("X") of
+        the process "spans", one track a thread, ``ts`` in µs after
+        ``base_ns`` (a trace's ``baseTimeNanoseconds``)."""
+        return [{"ph": "X", "name": s.name, "cat": "span", "pid": "spans", "tid": s.thread,
+                 "ts": (s.start_ns - base_ns) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+                 "args": {"id": s.id, "parent": s.parent, "step": s.step}}
+                for s in self.spans if s.end_ns]
+
+    def write_chrome_trace(self, path: str) -> None:
+        """The spans as a Chrome trace-event file (Perfetto-loadable), with
+        the counters and launches under ``otherData``."""
+        snap = self.snapshot()
+        with open(path, "w") as fh:
+            json.dump({"displayTimeUnit": "ms", "traceEvents": self.chrome_events(),
+                       "otherData": {k: snap[k] for k in
+                                     ("counters", "launches", "dropped")}}, fh)
+
+
+_TRACER: StepTracer | None = None
+
+
+def span(name: str):
+    """A context manager around one span of the installed tracer; with
+    none installed, the shared :data:`NULL_SPAN`."""
+    if _TRACER is None:
+        return NULL_SPAN
+    return _TRACER.span(name)
+
+
+def count(name: str, k: int = 1) -> None:
+    """Add ``k`` to the installed tracer's counter ``name``; nothing when
+    none is installed."""
+    if _TRACER is not None:
+        _TRACER.count(name, k)
+
+
+class tracing:
+    """``with tracing(tracer):`` installs ``tracer`` for the code inside,
+    with the calling thread as its home, and restores the tracer that was
+    installed before (None: tracing off)."""
+
+    __slots__ = ("_tracer", "_outer")
+
+    def __init__(self, tracer: StepTracer) -> None:
+        self._tracer = tracer
+
+    def __enter__(self) -> StepTracer:
+        global _TRACER
+        self._outer = _TRACER
+        self._tracer.install()
+        _TRACER = self._tracer
+        return self._tracer
+
+    def __exit__(self, *exc) -> bool:
+        global _TRACER
+        _TRACER = self._outer
+        return False

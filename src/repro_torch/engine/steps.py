@@ -11,6 +11,14 @@ Sharded over a mesh (a ``Sharder`` with a mesh): ``make_prefill`` and
 or ``models.spec.distributed``) and shard the batch by its logical axes;
 ``make_sharded_train_step`` keeps each rank's local shards of the
 parameters and optimizer state in flat buffers.
+
+Under ``core.telemetry.tracing`` both train steps open the spans
+``train.step`` (the whole step), ``train.stage`` (the batch moved to the
+device), ``train.microbatch``, ``train.forward`` (``model.loss``),
+``train.backward`` (``loss.backward()``), ``train.exchange`` (the
+all-reduce and the division; data-parallel steps only) and
+``train.update``, and count ``train.microbatches`` and ``train.tokens``.
+Off, each span site costs one check and nothing is synchronised.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.collectives.dist import ALGORITHMS, allreduce_
+from repro_torch.core import telemetry
 from repro_torch.models.layers import NO_SHARD, Sharder
 from repro_torch.models.spec import (FlatTree, TensorSpec, as_dtensors,
                                      flatten, unflatten, views)
@@ -77,6 +86,14 @@ def _synced_clock(device: torch.device) -> float:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     return time.perf_counter()
+
+
+def _count_batch(batch: dict, k: int) -> None:
+    """The step's ``train.microbatches`` and ``train.tokens`` (the tokens
+    of the batch it was given, where the batch has tokens)."""
+    telemetry.count("train.microbatches", k)
+    if "tokens" in batch:
+        telemetry.count("train.tokens", batch["tokens"].numel())
 
 
 def _check_params(params: dict, device: torch.device) -> None:
@@ -147,8 +164,10 @@ def accumulate_flat_grad(model, params: FlatTree, batch: dict,
     the flat f32 buffer ``grads`` (in ``params.flat``'s order), in place;
     returns the loss, detached."""
     with torch.enable_grad():
-        loss = model.loss(_grad_leaves(model, params, grads), batch, sh)
-        loss.backward()
+        with telemetry.span("train.forward"):
+            loss = model.loss(_grad_leaves(model, params, grads), batch, sh)
+        with telemetry.span("train.backward"):
+            loss.backward()
     return loss.detach()
 
 
@@ -203,33 +222,38 @@ def make_train_step(model, optimizer: Optimizer, sh: Sharder = NO_SHARD,
 
     def train_step(state, batch, lr):
         nonlocal grads
-        params = state["params"]
-        _check_params(params, dev)
-        if grads is None:
-            grads = torch.empty_like(params.flat)
-        batch = _on(batch, dev)
-        k = microbatches
-        b = len(next(iter(batch.values())))
-        if b % k:
-            raise ValueError(f"a batch of {b} rows does not split into "
-                             f"{k} microbatches")
-        m, loss = b // k, 0.0
-        grads.zero_()
-        for i in range(k):
-            mb = {key: v[i * m:(i + 1) * m] for key, v in batch.items()}
-            loss = loss + accumulate_flat_grad(model, params, mb, grads, sh)
-        if k > 1:
-            grads.div_(k)
-            loss = loss / k
-        if grad_exchange is not None:
-            t0 = None if exchange_ms is None else _synced_clock(dev)
-            allreduce_(grads, group, grad_exchange)
-            grads.div_(dist.get_world_size(group))
-            if t0 is not None:
-                exchange_ms.append(1e3 * (_synced_clock(dev) - t0))
-        with torch.no_grad():
-            new_params, new_opt = optimizer.update(grads, state["opt"], params, lr)
-        return {"params": new_params, "opt": new_opt}, loss
+        with telemetry.span("train.step"):
+            params = state["params"]
+            _check_params(params, dev)
+            if grads is None:
+                grads = torch.empty_like(params.flat)
+            with telemetry.span("train.stage"):
+                batch = _on(batch, dev)
+            k = microbatches
+            b = len(next(iter(batch.values())))
+            if b % k:
+                raise ValueError(f"a batch of {b} rows does not split into "
+                                 f"{k} microbatches")
+            _count_batch(batch, k)
+            m, loss = b // k, 0.0
+            grads.zero_()
+            for i in range(k):
+                with telemetry.span("train.microbatch"):
+                    mb = {key: v[i * m:(i + 1) * m] for key, v in batch.items()}
+                    loss = loss + accumulate_flat_grad(model, params, mb, grads, sh)
+            if k > 1:
+                grads.div_(k)
+                loss = loss / k
+            if grad_exchange is not None:
+                with telemetry.span("train.exchange"):
+                    t0 = None if exchange_ms is None else _synced_clock(dev)
+                    allreduce_(grads, group, grad_exchange)
+                    grads.div_(dist.get_world_size(group))
+                    if t0 is not None:
+                        exchange_ms.append(1e3 * (_synced_clock(dev) - t0))
+            with torch.no_grad(), telemetry.span("train.update"):
+                new_params, new_opt = optimizer.update(grads, state["opt"], params, lr)
+            return {"params": new_params, "opt": new_opt}, loss
 
     return train_step
 
@@ -256,10 +280,12 @@ def accumulate_sharded_grad(model, params: FlatTree, batch: dict,
     leaves = as_dtensors(_grad_leaves(model, params, grads),
                          model.param_specs(), sh.mesh, sh.rules)
     with torch.enable_grad(), sh.context():
-        loss = model.loss(leaves, batch, sh)
-        if isinstance(loss, DTensor):
-            loss = loss.full_tensor()
-        loss.backward()
+        with telemetry.span("train.forward"):
+            loss = model.loss(leaves, batch, sh)
+            if isinstance(loss, DTensor):
+                loss = loss.full_tensor()
+        with telemetry.span("train.backward"):
+            loss.backward()
     return loss.detach()
 
 
@@ -288,22 +314,27 @@ def make_sharded_train_step(model, optimizer: Optimizer, sh: Sharder,
 
     def train_step(state, batch, lr):
         nonlocal grads
-        params = state["params"]
-        _check_params(params, dev)
-        if grads is None:
-            grads = torch.empty_like(params.flat)
-        grads.zero_()
-        batch, k, loss = _on(batch, dev, sh), microbatches, 0.0
-        for i in range(k):
-            mb = (batch if k == 1 else
-                  {key: _local_microbatch(v, i, k) for key, v in batch.items()})
-            loss = loss + accumulate_sharded_grad(model, params, mb, grads, sh)
-        if k > 1:
-            grads.div_(k)
-            loss = loss / k
-        with torch.no_grad():
-            new_params, new_opt = optimizer.update(grads, state["opt"], params, lr)
-        return {"params": new_params, "opt": new_opt}, loss
+        with telemetry.span("train.step"):
+            params = state["params"]
+            _check_params(params, dev)
+            if grads is None:
+                grads = torch.empty_like(params.flat)
+            grads.zero_()
+            with telemetry.span("train.stage"):
+                batch = _on(batch, dev, sh)
+            k, loss = microbatches, 0.0
+            _count_batch(batch, k)
+            for i in range(k):
+                with telemetry.span("train.microbatch"):
+                    mb = (batch if k == 1 else
+                          {key: _local_microbatch(v, i, k) for key, v in batch.items()})
+                    loss = loss + accumulate_sharded_grad(model, params, mb, grads, sh)
+            if k > 1:
+                grads.div_(k)
+                loss = loss / k
+            with torch.no_grad(), telemetry.span("train.update"):
+                new_params, new_opt = optimizer.update(grads, state["opt"], params, lr)
+            return {"params": new_params, "opt": new_opt}, loss
 
     return train_step
 

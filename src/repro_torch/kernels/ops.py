@@ -15,7 +15,8 @@ dispatch (kernel or plain version, under no_grad) and whose backward is an
 explicit formula in torch ops, in f32 and cast to the input's dtype. The
 reference has no backward kernel (``jax.grad`` differentiates its plain
 ``jnp`` ops), so neither has the port; autograd never runs through the
-plain versions here.
+plain versions here. Each formula runs inside a ``core.telemetry`` span,
+``kernels.<kernel>.backward``.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from repro_torch.core import telemetry
 from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rms
@@ -262,7 +264,8 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        return (*rmsnorm_backward(x, w, g, eps=ctx.eps), None)
+        with telemetry.span("kernels.rmsnorm.backward"):
+            return (*rmsnorm_backward(x, w, g, eps=ctx.eps), None)
 
 
 class _SWAAttention(torch.autograd.Function):
@@ -278,10 +281,11 @@ class _SWAAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        return (*swa_attention_backward(q, k, v, do, causal=ctx.causal,
-                                        window=ctx.window,
-                                        q_offset=ctx.q_offset),
-                None, None, None)
+        with telemetry.span("kernels.swa_attention.backward"):
+            return (*swa_attention_backward(q, k, v, do, causal=ctx.causal,
+                                            window=ctx.window,
+                                            q_offset=ctx.q_offset),
+                    None, None, None)
 
 
 def rmsnorm(x, w, *, eps: float = 1e-6):

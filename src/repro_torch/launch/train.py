@@ -34,10 +34,15 @@ parameters beside each save and restore.
       --m-per-worker 2 --grad-exchange ring --backend nccl
 
 Runs on the GPU; ``--device cpu`` runs the plain versions on the CPU.
+The ``tok/s`` of a log line counts the steps after the first over the
+time since the first step's loss was read. ``--trace PATH`` runs those
+steps under a ``core.telemetry.StepTracer`` and writes its spans and
+counters to PATH (Chrome trace-event JSON, for Perfetto) at the end.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import time
@@ -47,6 +52,7 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import telemetry
 from repro_torch.data.synthetic import TokenStream
 from repro_torch.engine.steps import (init_train_state, make_train_step,
                                       resolve_device)
@@ -110,6 +116,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default="gloo", choices=["gloo", "nccl"],
                     help="the process group's backend when torchrun starts the ranks")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="trace the steps after the first (core.telemetry spans and "
+                         "counters) and write them to PATH as Chrome trace-event JSON "
+                         "(PATH.rank<r> suffixed per rank when there are several)")
     args = ap.parse_args(argv)
     dev, own_group = _join(args.device, args.backend)
     try:
@@ -154,20 +164,32 @@ def _train(args, dev: torch.device):
         log(f"restored step {step0} in {secs:.2f}s (meta={meta}, params "
             f"checksum {checksum(state['params'].flat)})", flush=True)
 
-    t0 = time.perf_counter()
-    first_loss = None
-    for i in range(step0, step0 + args.steps):
-        batch = data.batch(i, global_batch)
-        if exchange:
-            batch = local_rows(batch, rank, world)
-        state, loss = step_fn(state, batch, sched(i))
-        if first_loss is None:
-            first_loss = float(loss)
-        if i % args.log_every == 0 or i == step0 + args.steps - 1:
-            dt = time.perf_counter() - t0
-            tok_s = (i - step0 + 1) * global_batch * args.seq / max(dt, 1e-9)
-            log(f"step {i:5d} loss {float(loss):.4f} lr {sched(i):.2e} "
-                f"tok/s {tok_s:,.0f}", flush=True)
+    tracer = telemetry.StepTracer() if args.trace else None
+    first_loss, t0 = None, None
+    with contextlib.ExitStack() as traced:
+        for i in range(step0, step0 + args.steps):
+            batch = data.batch(i, global_batch)
+            if exchange:
+                batch = local_rows(batch, rank, world)
+            state, loss = step_fn(state, batch, sched(i))
+            if first_loss is None:
+                # float() waits for the step: the rate's clock starts after
+                # the first step's build and warm-up
+                first_loss = float(loss)
+                t0 = time.perf_counter()
+                if tracer is not None:
+                    traced.enter_context(telemetry.tracing(tracer))
+            if i % args.log_every == 0 or i == step0 + args.steps - 1:
+                line = f"step {i:5d} loss {float(loss):.4f} lr {sched(i):.2e}"
+                if i > step0:  # float(loss) has waited for step i
+                    dt = time.perf_counter() - t0
+                    line += f" tok/s {(i - step0) * global_batch * args.seq / dt:,.0f}"
+                log(line, flush=True)
+    if tracer is not None:
+        path = args.trace if world == 1 else f"{args.trace}.rank{rank}"
+        tracer.write_chrome_trace(path)
+        log(f"spans and counters of steps {step0 + 1}-{step0 + args.steps - 1} in {path}",
+            flush=True)
     if store:
         if world > 1:
             dist.barrier()
