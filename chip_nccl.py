@@ -494,8 +494,7 @@ def resnet_dp_phase(smi: list[str]) -> dict:
     print("resnet_dp phase: " + json.dumps(out), flush=True)
     for spec, summary, ranks in gated:
         cs.dp_gates(f"resnet_dp w={spec.world}", spec, summary, ranks,
-                    {"rmsnorm": 0, "swa_attention": 0, "fused_sgd_update": 1},
-                    cs.DP_UPDATE_LIMIT)
+                    cs.launches(fused_sgd_update=1), cs.DP_UPDATE_LIMIT)
         cards_gate(f"resnet_dp w={spec.world}", summary, spec.world)
     return out
 
@@ -584,8 +583,8 @@ def lm_dp_phase(smi: list[str]) -> dict:
     print("lm_dp phase: " + json.dumps(out), flush=True)
     cfg = spec.cfg
     cs.dp_gates("lm_dp", spec, summary, ranks,
-                {"rmsnorm": 2 * cfg.n_layers + 1, "swa_attention": cfg.n_layers,
-                 "fused_sgd_update": 1}, cs.LM_DP_UPDATE_LIMIT)
+                cs.launches(rmsnorm=2 * cfg.n_layers + 1, swa_attention=cfg.n_layers,
+                            fused_sgd_update=1), cs.LM_DP_UPDATE_LIMIT)
     cards_gate("lm_dp", summary, spec.world)
     return out
 
@@ -861,9 +860,8 @@ def dbrx_report(out: dict, smi: str) -> None:
 
 
 def dbrx_gates(out: dict, cfg) -> None:
-    per_pass = {"rmsnorm": 2 * cfg.n_layers + 1, "swa_attention": cfg.n_layers,
-                "fused_sgd_update": 0}
-    per_step = {"rmsnorm": 2 * cfg.n_layers + 1, "swa_attention": 0, "fused_sgd_update": 0}
+    per_pass = cs.launches(rmsnorm=2 * cfg.n_layers + 1, swa_attention=cfg.n_layers)
+    per_step = cs.launches(rmsnorm=2 * cfg.n_layers + 1)
     cards = [r["card"] for r in out["ranks"]]
     check(cards == list(range(CARDS)) or BACKEND != "nccl", f"dbrx_tp: ranks on cards {cards}")
     for i, r in enumerate(out["ranks"]):

@@ -221,6 +221,7 @@ from repro_torch.engine import steps as steps_module  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import fused_update as sgd_kernel  # noqa: E402
 from repro_torch.kernels import rmsnorm as rms_kernel  # noqa: E402
+from repro_torch.kernels import ssd as ssd_kernel  # noqa: E402
 from repro_torch.kernels import swa_attention as swa_kernel  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import explicit_allreduce as dp  # noqa: E402
@@ -484,6 +485,16 @@ SSM_CONTROL_FAULTS = ("no_cache", "ssm_state_zeroed")
 # bf16), so the f32 steps run with deterministic algorithms, and the loss
 # of a held-out batch must fall too (11.355 to 11.237 on the H100).
 SSM_TRAIN = dict(batch=8, seq=128, steps=20, base_lr=3e-4, warmup=5)
+SSD_TRAIN_SHAPE = (2, 2048)  # a microbatch of portbench's mamba2-780m.train cell
+# The SSD kernels' y and five gradients in the kernel phase, against the
+# plain version in float64 of the same (rounded) inputs: the relative L2
+# error of each within this factor of the plain version's own in the same
+# dtype (f32: or within SSD_F32_LIMIT), the limits of
+# tests/test_torch_ssd_kernel.py. Against that reference only each
+# version's arithmetic is left; the kernels keep the plain version's casts
+# forward and compute the backward in f32.
+SSD_ERROR_FACTOR = 1.5
+SSD_F32_LIMIT = 1e-5
 SSM_BF16_STEPS = 5
 SSM_BF16_LOSS_LIMIT = 1e-2  # the bf16 step's loss, kernels vs plain
 # The audio family (audio phase): whisper-base at full published width and
@@ -747,12 +758,18 @@ def randn(gen, shape, dtype, scale=1.0):
 @contextlib.contextmanager
 def plain_versions():
     """Route the model's kernel calls to the plain PyTorch versions."""
-    saved = ops.rmsnorm, ops.swa_attention
-    ops.rmsnorm, ops.swa_attention = ref.rmsnorm_ref, ref.swa_attention_ref
+    saved = ops.rmsnorm, ops.swa_attention, ops.ssd
+    ops.rmsnorm, ops.swa_attention, ops.ssd = ref.rmsnorm_ref, ref.swa_attention_ref, ref.ssd
     try:
         yield
     finally:
-        ops.rmsnorm, ops.swa_attention = saved
+        ops.rmsnorm, ops.swa_attention, ops.ssd = saved
+
+
+def launches(**counts) -> dict:
+    """A record as ``ops.launch_counts()`` keeps it: the kernels named at
+    their counts, every other kernel at 0."""
+    return {**dict.fromkeys(ops.launch_counts(), 0), **counts}
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1012,6 +1029,92 @@ def audio_swa_timings(gen) -> dict:
             for name, sq in (("encoder", frames), ("cross_prefill", s), ("cross_decode", 1))}
 
 
+def ssd_errors(x, B, C, dt, dA, dy, q: int) -> dict:
+    """The relative L2 errors of the SSD kernels' y and five gradients
+    (``kernel``) and of the plain version's in the same dtypes (``plain``),
+    against the plain version in float64 of the same inputs; check()ed
+    within SSD_ERROR_FACTOR of the plain version's."""
+    def plain(*args):
+        leaves = [t.detach().requires_grad_() for t in args]
+        y = ref.ssd(*leaves, q)
+        return (y.detach(), *torch.autograd.grad(y, leaves, dy.to(y.dtype)))
+
+    want = plain(*(t.double() for t in (x, B, C, dt, dA)))
+    y, cs, st = ssd_kernel.ssd_forward(x, B, C, dt, dA, q)
+    got = (y, *ssd_kernel.ssd_backward(dy, x, B, C, dt, dA, cs, st, q))
+    versions = {"kernel": got, "plain": plain(x, B, C, dt, dA)}
+    out = {key: {name: float(torch.linalg.vector_norm(g.double() - w)
+                             / torch.linalg.vector_norm(w))
+                 for name, g, w in zip(("y", "dx", "dB", "dC", "ddt", "ddA"), tensors, want)}
+           for key, tensors in versions.items()}
+    for name, err in out["kernel"].items():
+        limit = SSD_ERROR_FACTOR * out["plain"][name]
+        if x.dtype == torch.float32:
+            limit = max(limit, SSD_F32_LIMIT)
+        check(err <= limit, f"ssd kernels' {name} at {tuple(x.shape)} {x.dtype}: relative "
+                            f"error {err:.3g} against float64, limit {limit:.3g}")
+    return out
+
+
+def ssd_timing(gen, arch: str, shape: tuple[int, int], dtype) -> dict:
+    """The SSD kernels of one mixer call at ``arch``'s widths and x of
+    [B, S] = ``shape``, forward and backward, beside the plain version
+    (forward alone, and forward with autograd's backward) and the bound of
+    each direction (``ops.ssd_cost``). Inputs at the models' scales: dt
+    log-uniform in [1e-3, 1e-1], A in [1, 16]. The kernels' output and
+    gradients on the first set are checked first (``ssd_errors``)."""
+    c = get_config(arch)
+    b, s = shape
+    h, p, n, q = c.n_ssm_heads, c.ssm_headdim, c.ssm_state, c.ssm_chunk
+    elt = torch.tensor([], dtype=dtype).element_size()
+    fwd_ops, fwd_bytes = ops.ssd_cost(b, s, h, p, n, q, elt)
+    bwd_ops, bwd_bytes = ops.ssd_cost(b, s, h, p, n, q, elt, backward=True)
+
+    def make():
+        x, dy = randn(gen, (b, s, h, p), dtype), randn(gen, (b, s, h, p), dtype)
+        B, C = randn(gen, (b, s, n), dtype), randn(gen, (b, s, n), dtype)
+        dt = torch.exp(torch.empty((b, s, h), device=DEVICE).uniform_(
+            math.log(1e-3), math.log(1e-1), generator=gen))
+        dA = dt * -torch.empty((h,), device=DEVICE).uniform_(1.0, 16.0, generator=gen)
+        _, cs, st = ssd_kernel.ssd_forward(x, B, C, dt, dA, q)
+        return x, B, C, dt, dA, dy, cs, st
+
+    def plain_fwd_bwd(x, B, C, dt, dA, dy, cs, st):
+        leaves = [t.detach().requires_grad_() for t in (x, B, C, dt, dA)]
+        torch.autograd.grad(ref.ssd(*leaves, q), leaves, dy)
+
+    sets = copies(make, int(fwd_bytes))
+    calls = {"forward": lambda x, B, C, dt, dA, dy, cs, st: ssd_kernel.ssd_forward(
+                 x, B, C, dt, dA, q),
+             "backward": lambda x, B, C, dt, dA, dy, cs, st: ssd_kernel.ssd_backward(
+                 dy, x, B, C, dt, dA, cs, st, q),
+             "plain_forward": lambda x, B, C, dt, dA, dy, cs, st: ref.ssd(x, B, C, dt, dA, q),
+             "plain_forward_backward": plain_fwd_bwd}
+    out = {"arch": arch, "shape": [b, s, h, p], "state": n, "chunk": q,
+           "dtype": str(dtype).removeprefix("torch."),
+           "rel_err_vs_float64": ssd_errors(*sets[0][:6], q)}
+    torch.cuda.empty_cache()  # the float64 plain version's saved tensors
+    for key, fn in calls.items():
+        # the plain version launches ~280 kernels a call forward, ~880
+        # with its backward: fewer calls of it
+        made = 4 if key.startswith("plain") else DEVICE_MS_CALLS
+        host = time_ms(fn, sets, iters=made if key.startswith("plain") else 50)
+        out[f"{key}_host_ms"] = host
+        if key == "plain_forward_backward":
+            # autograd launches the backward from its own thread, outside
+            # the profiled call's range: the CUDA-event time alone
+            out[f"{key}_ms"] = host
+            continue
+        dev, listing, seen = device_ms(fn, sets, made)
+        out[f"{key}_ms"] = host if dev is None else dev
+        out[f"{key}_calls_seen"], out[f"{key}_calls_made"] = seen, made
+        out[f"{key}_kernels_per_call"] = sum(e["per_call"] for e in listing.values()
+                                             if not e["annotation"])
+    out["forward_bound"] = bound(int(fwd_bytes), int(fwd_ops), dtype)
+    out["backward_bound"] = bound(int(bwd_bytes), int(bwd_ops), dtype)
+    return out
+
+
 def kernel_phase(cfg, n_resnet: int) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(11)
     b, s = PREFILL_SHAPE
@@ -1177,6 +1280,10 @@ def kernel_phase(cfg, n_resnet: int) -> dict:
         "fused_sgd_update": {"max_abs_err": sgd_err,
                              "train": sgd_timing(gen, n_resnet),
                              "lm_dp": sgd_timing(gen, LM_DP_PARAMS)},
+        # a microbatch of portbench's mamba2-780m.train cell, and jamba's
+        # mixer at the prefill shape, each checked against float64 first
+        "ssd": {"mamba2_train": ssd_timing(gen, SSM_ARCH, SSD_TRAIN_SHAPE, bf16),
+                "hybrid_prefill": ssd_timing(gen, HYBRID_ARCH, PREFILL_SHAPE, bf16)},
     }
 
 
@@ -1384,8 +1491,7 @@ def prefill_phase(cfg, model, params) -> dict:
     out = {"shape": [b, s], **res, "decode_vs_prefill": sound,
            "decode_vs_prefill_faulty_controls": controls}
     print("prefill phase: " + json.dumps(out), flush=True)
-    check(counts == {"rmsnorm": 2 * cfg.n_layers + 1,
-                     "swa_attention": cfg.n_layers, "fused_sgd_update": 0},
+    check(counts == launches(rmsnorm=2 * cfg.n_layers + 1, swa_attention=cfg.n_layers),
           f"prefill launches {counts}")
     check(logits.shape == (b, s, cfg.vocab_size), f"logits {tuple(logits.shape)}")
     check(bool(torch.isfinite(logits).all()), "prefill logits finite")
@@ -1632,8 +1738,8 @@ def moe_serve_phase(smi: str) -> dict:
     print(f"moe_serve phase [{smi}]: " + json.dumps(out), flush=True)
 
     per_step = 2 * cfg.n_layers + 1
-    check(r["launches"] == {"rmsnorm": per_step, "swa_attention": cfg.n_layers,
-                            "fused_sgd_update": 0}, f"MoE prefill launches {r['launches']}")
+    check(r["launches"] == launches(rmsnorm=per_step, swa_attention=cfg.n_layers),
+          f"MoE prefill launches {r['launches']}")
     check(finite, "MoE prefill logits finite")
     check(contract(r), f"MoE kernels vs plain prefill: rel err {r['rel_err_vs_plain']}, "
           f"argmax {r['argmax_agree_vs_plain']}")
@@ -1682,8 +1788,7 @@ def vlm_phase(smi: str) -> dict:
     out.update(prefill=r, mrope_off_control=control)
     out["serve"] = serve_phase(cfg, params, "vlm_serve")
     print(f"vlm phase [{smi}]: " + json.dumps(out), flush=True)
-    check(r["launches"] == {"rmsnorm": 2 * cfg.n_layers + 1,
-                            "swa_attention": cfg.n_layers, "fused_sgd_update": 0},
+    check(r["launches"] == launches(rmsnorm=2 * cfg.n_layers + 1, swa_attention=cfg.n_layers),
           f"VLM prefill launches {r['launches']}")
     check(finite, "VLM prefill logits finite")
     check(contract(r), f"VLM kernels vs plain prefill: rel err {r['rel_err_vs_plain']}, "
@@ -1818,8 +1923,7 @@ def dense_phase(smi: str) -> dict:
 
     for arch, r in out.items():
         cfg, gated = get_config(arch), DENSE_GATED[arch]
-        per_pass = {"rmsnorm": 2 * cfg.n_layers + 1, "swa_attention": cfg.n_layers,
-                    "fused_sgd_update": 0}
+        per_pass = launches(rmsnorm=2 * cfg.n_layers + 1, swa_attention=cfg.n_layers)
         own_token = cfg.name.startswith(OWN_TOKEN_ARGMAX)
         if own_token:
             share = r["prefill"]["bf16"]["argmax_is_input_token"]
@@ -2025,13 +2129,14 @@ def check_controls(label: str, controls: dict, argmax_half: bool = True) -> None
 
 
 def check_prefill_runs(label: str, runs: dict, gated: tuple[str, ...], per_pass: int,
-                       grouped: int, swa: int, vocab: int, argmax_half: bool = True) -> None:
+                       grouped: int, swa: int, vocab: int, argmax_half: bool = True,
+                       ssd: int = 0) -> None:
     """The gates of ssm_prefill_and_decode's and dense_runs' readings:
-    launches of every counted prefill; the contract, decode_gate and the
-    failing controls on the runs named in ``gated``."""
+    launches of every counted prefill (``ssd``: the SSD kernels' forward
+    launches); the contract, decode_gate and the failing controls on the
+    runs named in ``gated``."""
     for name, r in runs.items():
-        check(r["launches"] == {"rmsnorm": per_pass, "swa_attention": swa,
-                                "fused_sgd_update": 0}
+        check(r["launches"] == launches(rmsnorm=per_pass, swa_attention=swa, ssd=ssd)
               and r["rmsnorm_grouped_launches"] == grouped,
               f"{label} {name} prefill launches {r['launches']}, "
               f"grouped {r['rmsnorm_grouped_launches']}")
@@ -2084,11 +2189,14 @@ def ssm_phase(smi: str) -> dict:
     out["train"] = ssm_train(cfg, smi)
     print(f"ssm phase [{smi}]: " + json.dumps(out), flush=True)
 
-    check_prefill_runs("SSM", out["prefill"], SSM_GATED, per_pass, grouped, 0, cfg.vocab_size)
+    # the SSD kernels a mixer: FORWARD_LAUNCHES forward, BACKWARD_LAUNCHES backward
+    fwd, bwd = ssd_kernel.FORWARD_LAUNCHES * grouped, ssd_kernel.BACKWARD_LAUNCHES * grouped
+    check_prefill_runs("SSM", out["prefill"], SSM_GATED, per_pass, grouped, 0, cfg.vocab_size,
+                       ssd=fwd)
     sc = out["train"]["step_vs_plain"]
-    none = {"swa_attention": 0, "fused_sgd_update": 0}
     for name, r in sc.items():
-        check(r["launches"] == {"rmsnorm": per_pass, **none, "rmsnorm_grouped": grouped},
+        check(r["launches"] == {**launches(rmsnorm=per_pass, ssd=fwd, ssd_backward=bwd),
+                                "rmsnorm_grouped": grouped},
               f"SSM {name} step launches {r['launches']}")
     check(lm_step_gate(sc["f32"]["kernels"]),
           f"SSM step in f32, kernels vs plain: {sc['f32']['kernels']}, limits {LM_STEP_LIMITS}")
@@ -2100,10 +2208,11 @@ def ssm_phase(smi: str) -> dict:
     for name in ("f32_activations", "bf16"):
         tr = out["train"][name]
         n = tr["steps"]
-        check(tr["launches"] == {"rmsnorm": per_pass * n, **none,
+        check(tr["launches"] == {**launches(rmsnorm=per_pass * n, ssd=fwd * n,
+                                            ssd_backward=bwd * n),
                                  "rmsnorm_grouped": grouped * n},
               f"SSM {name} train launches {tr['launches']}: {per_pass} ({grouped} "
-              f"grouped) a step")
+              f"grouped) rmsnorm, {fwd} + {bwd} ssd a step")
         check(all(math.isfinite(l) for l in tr["losses"]),
               f"SSM {name} losses finite: {tr['losses']}")
     losses = out["train"]["f32_activations"]["losses"]
@@ -2113,8 +2222,7 @@ def ssm_phase(smi: str) -> dict:
     check(held["after"] < held["before"], f"SSM held-out loss falls: {held}")
     counted = [out["serve"], out["prefill"]["bf16"], out["prefill"]["f32"],
                out["train"]["f32_activations"], out["train"]["bf16"]]
-    out["launches"] = {k: sum(c["launches"][k] for c in counted)
-                       for k in ("rmsnorm", "swa_attention", "fused_sgd_update")}
+    out["launches"] = {k: sum(c["launches"][k] for c in counted) for k in launches()}
     return out
 
 
@@ -2141,13 +2249,12 @@ def hybrid_phase(smi: str) -> dict:
 
     runs = {k: out["prefill"][k] for k in ("bf16", "f32")}
     check_prefill_runs("hybrid", runs, HYBRID_GATED, per_pass, grouped, model.n_blocks,
-                       cfg.vocab_size)
+                       cfg.vocab_size, ssd=ssd_kernel.FORWARD_LAUNCHES * grouped)
     peak = max(out["init_peak_memory_bytes"], out["prefill_peak_memory_bytes"],
                out["serve"]["peak_memory_bytes"])
     check(peak < 80e9, f"hybrid peak memory {peak}")
     counted = [out["serve"], runs["bf16"], runs["f32"]]
-    out["launches"] = {k: sum(c["launches"][k] for c in counted)
-                       for k in ("rmsnorm", "swa_attention", "fused_sgd_update")}
+    out["launches"] = {k: sum(c["launches"][k] for c in counted) for k in launches()}
     return out
 
 
@@ -2252,11 +2359,9 @@ def audio_phase(smi: str) -> dict:
     out["train"] = audio_train(cfg, smi)
     print(f"audio phase [{smi}]: " + json.dumps(out), flush=True)
 
-    per_prefill = {"rmsnorm": 0, "swa_attention": cfg.encoder_layers + 2 * cfg.n_layers,
-                   "fused_sgd_update": 0}
+    per_prefill = launches(swa_attention=cfg.encoder_layers + 2 * cfg.n_layers)
     check(r["launches"] == per_prefill, f"audio prefill launches {r['launches']}")
-    check(decode_launches == {"rmsnorm": 0, "swa_attention": cfg.n_layers * CONTROL_POSITIONS,
-                              "fused_sgd_update": 0},
+    check(decode_launches == launches(swa_attention=cfg.n_layers * CONTROL_POSITIONS),
           f"audio decode launches {decode_launches} over {CONTROL_POSITIONS} steps")
     check(finite, "audio prefill logits finite")
     check(contract(r), f"audio kernels vs plain prefill: rel err {r['rel_err_vs_plain']}, "
@@ -2509,10 +2614,9 @@ def train_phase() -> dict:
     print("train phase: " + json.dumps(out), flush=True)
 
     losses1, losses2, losses3 = (s["losses"] for s in out["segments"])
-    check(after_first == {"rmsnorm": 0, "swa_attention": 0, "fused_sgd_update": n1},
+    check(after_first == launches(fused_sgd_update=n1),
           f"launches after the first segment {after_first}")
-    check(counts == {"rmsnorm": 0, "swa_attention": 0,
-                     "fused_sgd_update": n1 + n2 + n3},
+    check(counts == launches(fused_sgd_update=n1 + n2 + n3),
           f"train launches {counts}: one fused_sgd_update per step")
     check(all(math.isfinite(l) for l in losses1 + losses2 + losses3), "losses finite")
     check(sum(losses2) / len(losses2) < losses1[0],
@@ -2704,8 +2808,7 @@ def sched_phase(smi: str) -> dict:
     check(rec2.losses[-1][2] < rec.losses[0][2],
           f"last loss {rec2.losses[-1][2]} below the first {rec.losses[0][2]}")
     check(rec2.losses[0][0] == steps_1, "the restart continues the steps")
-    check(counts == {"rmsnorm": 0, "swa_attention": 0,
-                     "fused_sgd_update": steps_1 + steps_2},
+    check(counts == launches(fused_sgd_update=steps_1 + steps_2),
           f"sched launches {counts}: one fused_sgd_update per step")
     for t in out["table3"]["card_profile"] + out["table3"]["card_profile_h100_nvlink"]:
         check(all(all(row.values()) for row in t["completed"].values()),
@@ -2886,8 +2989,7 @@ def lm_train_phase(smi: str) -> dict:
           f"{profile_['device_idle_share']} a step [{smi}]", flush=True)
     print("lm_train phase: " + json.dumps(out), flush=True)
 
-    per_step = {"rmsnorm": 2 * cfg.n_layers + 1, "swa_attention": cfg.n_layers,
-                "fused_sgd_update": 0}
+    per_step = launches(rmsnorm=2 * cfg.n_layers + 1, swa_attention=cfg.n_layers)
     check(step_check["launches"] == {**per_step, "rmsnorm_grouped": 0},
           f"LM step launches {step_check['launches']}")
     check(counts == {**{k: n * LM["steps"] for k, n in per_step.items()}, "rmsnorm_grouped": 0},
@@ -3005,7 +3107,7 @@ def dp_launches(ranks: list[dict]) -> dict[str, int]:
     """Each kernel's launches over the ranks and their algorithms."""
     return {k: sum(r["algorithms"][alg]["launches"][k] for r in ranks
                    for alg in r["algorithms"])
-            for k in ("rmsnorm", "swa_attention", "fused_sgd_update")}
+            for k in launches()}
 
 
 def dp_report(name: str, summary: dict, smi: str) -> None:
@@ -3157,8 +3259,8 @@ def shard_phase(smi: str, prefill_profile: dict, train_profile: dict) -> dict:
           f"shard: sharded prefill logits {rank['logits_type']} {rank['shape']}")
     check(contract(rank), f"shard: DTensor-route prefill vs unsharded: rel err "
           f"{rank['rel_err_vs_plain']}, argmax {rank['argmax_agree_vs_plain']}")
-    check(rank["launches"] == {"rmsnorm": 2 * cfg.n_layers + 1,
-                               "swa_attention": cfg.n_layers, "fused_sgd_update": 0},
+    check(rank["launches"] == launches(rmsnorm=2 * cfg.n_layers + 1,
+                                       swa_attention=cfg.n_layers),
           f"shard: DTensor-route prefill launches {rank['launches']}")
     return out
 
@@ -3177,8 +3279,7 @@ def dp_phase(smi: str) -> dict:
     for spec in (DP, DP_W3):
         key = f"w{spec.world}"
         dp_gates(f"dp w={spec.world}", spec, out["runs"][key], ranks[key],
-                 {"rmsnorm": 0, "swa_attention": 0, "fused_sgd_update": 1},
-                 DP_UPDATE_LIMIT)
+                 launches(fused_sgd_update=1), DP_UPDATE_LIMIT)
     return out
 
 
@@ -3196,8 +3297,8 @@ def lm_dp_phase(smi: str) -> dict:
     print("lm_dp phase: " + json.dumps(out), flush=True)
     cfg = spec.cfg
     dp_gates("lm_dp", spec, summary, ranks,
-             {"rmsnorm": 2 * cfg.n_layers + 1, "swa_attention": cfg.n_layers,
-              "fused_sgd_update": 1}, LM_DP_UPDATE_LIMIT)
+             launches(rmsnorm=2 * cfg.n_layers + 1, swa_attention=cfg.n_layers,
+                      fused_sgd_update=1), LM_DP_UPDATE_LIMIT)
     return out
 
 
@@ -3369,6 +3470,19 @@ def main() -> int:
             LM_DP.world * LM_DP.steps * len(LM_DP.algorithms)),
         "max_abs_err": k["max_abs_err"], **k["train"], "kernel_ms": k["train"]["ms"],
         "at_lm_dp": k["lm_dp"]})
+    k = kernels["ssd"]
+    entries.append({
+        "name": "ssd", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
+        "replaces": None, "tpu_counterpart": "none: plain jnp in src/repro/models/mamba2.py",
+        "launches": sum(ph["launches"][key] for ph in (ssm, hybrid)
+                        for key in ("ssd", "ssd_backward")),
+        "launches_per_ssm_prefill": ssm["prefill"]["bf16"]["launches"]["ssd"],
+        "launches_per_hybrid_prefill": hybrid["prefill"]["bf16"]["launches"]["ssd"],
+        "launches_ssm_train": {t: {key: ssm["train"][t]["launches"][key]
+                                   for key in ("ssd", "ssd_backward")}
+                               for t in ("f32_activations", "bf16")},
+        **k["mamba2_train"], "kernel_ms": k["mamba2_train"]["forward_ms"],
+        "at_hybrid_prefill": k["hybrid_prefill"]})
     for e in entries:
         check(e["launches"] > 0, f"{e['name']} never launched on the main path")
     print(f"total: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -12,10 +12,13 @@ kernel reduces are whole on each rank (``on_local_shards``).
 Gradients: where an input requires grad, ``rmsnorm`` and ``swa_attention``
 run through a ``torch.autograd.Function`` whose forward is the same
 dispatch (kernel or plain version, under no_grad) and whose backward is an
-explicit formula in torch ops, in f32 and cast to the input's dtype. The
-reference has no backward kernel (``jax.grad`` differentiates its plain
-``jnp`` ops), so neither has the port; autograd never runs through the
-plain versions here. Each formula runs inside a ``core.telemetry`` span,
+explicit formula in torch ops, in f32 and cast to the input's dtype: the
+reference has no backward kernel for them (``jax.grad`` differentiates its
+plain ``jnp`` ops), and autograd never runs through their plain versions.
+``ssd`` (Mamba-2's chunked SSD, plain ``jnp`` in the reference) is the one
+kernel with a backward kernel: on CUDA its Function's forward and backward
+both launch ``csrc/ssd.cu``, and on the CPU autograd runs through the plain
+version's ops. Each backward runs inside a ``core.telemetry`` span,
 ``kernels.<kernel>.backward``.
 """
 from __future__ import annotations
@@ -31,6 +34,7 @@ from repro_torch.core import telemetry
 from repro_torch.kernels import fused_update as _fu
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels import swa_attention as _swa
 
 
@@ -70,6 +74,27 @@ def swa_attention_cost(bh: int, sq: int, sk: int, d: int, elt: int, *,
     pairs the mask lets through."""
     pairs = swa_pairs(sq, sk, causal=causal, window=window, q_offset=q_offset)
     return 4.0 * d * pairs * bh, float(2 * bh * (sq + sk) * d * elt)
+
+
+def ssd_cost(b: int, s: int, h: int, p: int, n: int, chunk: int, elt: int, *,
+             backward: bool = False) -> tuple[float, float]:
+    """(operations, bytes) of one ssd call, forward or backward, at xin
+    [b, s, h, p] and Bm, Cm [b, s, n] in ``elt``-byte elements, dt and dA
+    f32. Operations, 2 a multiply-add over the causal pairs (i, j <= i) of
+    each chunk: forward C.B (once for every head), the intra-chunk product
+    M x, the inter-chunk term C h^T and the state's term; backward C.B
+    again, dy x^T and M^T dy, dC and dB through dCB, and five products of
+    the state's size (B G^T, C h^T, D, and dC's and dB's state terms).
+    Bytes: the forward reads its inputs and writes y; the backward reads
+    them and dy and writes the five gradients."""
+    q = min(chunk, s)
+    pairs = sum(k * (k + 1) // 2 for k in [q] * (s // q) + ([s % q] if s % q else []))
+    state = 2.0 * s * n * h * p  # one product of the state's size, all chunks
+    if backward:
+        return (b * (3 * 2.0 * pairs * n + 2 * 2.0 * pairs * h * p + 5 * state),
+                float(b * s * (3 * h * p * elt + 4 * n * elt + 4 * h * 4)))
+    return (b * (2.0 * pairs * n + 2.0 * pairs * h * p + 2 * state),
+            float(b * s * (2 * h * p * elt + 2 * n * elt + 2 * h * 4)))
 
 
 def fused_sgd_update_cost(n: int) -> tuple[float, float]:
@@ -288,6 +313,59 @@ class _SWAAttention(torch.autograd.Function):
                     None, None, None)
 
 
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the SSD kernels read it: a
+    copy only where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _ssd_meta(xin, Bm, backward: bool, chunk: int) -> None:
+    b, s, h, p = xin.shape
+    _charge("ssd_backward" if backward else "ssd",
+            ssd_cost(b, s, h, p, Bm.shape[-1], chunk, xin.element_size(), backward=backward))
+
+
+class _SSD(torch.autograd.Function):
+    """``ssd`` on CUDA (or meta) tensors: the forward kernels, and the
+    backward kernels as its gradient. Saves the five inputs, the cumsums
+    and the state entering each chunk."""
+
+    @staticmethod
+    def forward(ctx, xin, Bm, Cm, dt, dA, chunk):
+        ctx.chunk = chunk
+        if xin.device.type == "meta":
+            _ssd_meta(xin, Bm, False, chunk)
+            ctx.save_for_backward(xin, Bm, Cm, dt, dA)
+            return torch.empty_like(xin)
+        y, cs, states = _ssd.ssd_forward(xin, Bm, Cm, dt, dA, chunk)
+        ctx.save_for_backward(xin, Bm, Cm, dt, dA, cs, states)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        saved = ctx.saved_tensors
+        with telemetry.span("kernels.ssd.backward"):
+            if dy.device.type == "meta":
+                _ssd_meta(saved[0], saved[1], True, ctx.chunk)
+                grads = tuple(torch.empty_like(t) for t in saved)
+            else:
+                grads = _ssd.ssd_backward(_dense(dy), *saved, ctx.chunk)
+        return (*grads, None)
+
+
+def ssd(xin, Bm, Cm, dt, dA, chunk: int):
+    """Mamba-2's chunked SSD from a zero state (``ref.ssd``): xin [B, S, H,
+    P], Bm/Cm [B, S, N], dt/dA [B, S, H] f32 -> y [B, S, H, P] in xin's
+    dtype. CPU tensors run the plain version, autograd through its ops;
+    CUDA tensors the kernels through ``_SSD`` (no graph is recorded where
+    nothing requires grad), which raise on what they do not take; meta
+    tensors an empty output, the cost charged."""
+    if xin.device.type != "meta" and not _route(xin, "ssd"):
+        return ref.ssd(xin, Bm, Cm, dt, dA, chunk)
+    return _SSD.apply(*(_dense(t) for t in (xin, Bm, Cm, dt, dA)), chunk)
+
+
 def rmsnorm(x, w, *, eps: float = 1e-6):
     """RMSNorm with gain 1 + w. x: [..., D]; w: f32, [D], or [G, D] with
     x ending in [G, D] (a gain per head)."""
@@ -337,11 +415,15 @@ def launch_counts() -> dict[str, int]:
     """Launches of each kernel since the counts were last reset."""
     return {"rmsnorm": _rms.rmsnorm.launches,
             "swa_attention": _swa.swa_attention.launches,
-            "fused_sgd_update": _fu.fused_sgd_update.launches}
+            "fused_sgd_update": _fu.fused_sgd_update.launches,
+            "ssd": _ssd.ssd_forward.launches,
+            "ssd_backward": _ssd.ssd_backward.launches}
 
 
 def reset_launch_counts() -> None:
     _rms.rmsnorm.launches = 0
     _swa.swa_attention.launches = 0
     _fu.fused_sgd_update.launches = 0
+    _ssd.ssd_forward.launches = 0
+    _ssd.ssd_backward.launches = 0
     _rms.rmsnorm.grouped_launches = 0

@@ -65,3 +65,47 @@ def rmsnorm_ref(x, w, *, eps: float = 1e-6):
     ms = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(ms + eps)
     return (y * (1.0 + w.to(ct))).to(x.dtype)
+
+
+def _ssd_chunk(h, xc, Bc, Cc, dtc, dAc, dt_):
+    """One chunk of the SSD: (state after it, its output in ``dt_``).
+    h: [B, H, P, N] f32; xc [B, Q, H, P], Bc/Cc [B, Q, N] in ``dt_``;
+    dtc/dAc [B, Q, H] f32. The casts are the reference's: C.B in f32,
+    M rounded to ``dt_`` before its product with x, the inter-chunk term
+    and the state update in f32 (in f64 throughout for f64 inputs)."""
+    Q = xc.shape[1]
+    ct = math_dtype(dt_)
+    cs = torch.cumsum(dAc, dim=1)                                   # [B,Q,H]
+    CB = torch.einsum("bin,bjn->bij", Cc.to(ct), Bc.to(ct))
+    diff = cs[:, :, None, :] - cs[:, None, :, :]
+    mask = torch.ones((Q, Q), dtype=torch.bool, device=xc.device).tril()
+    decay = torch.exp(torch.where(mask[None, :, :, None], diff, NEG_INF))
+    M = CB[:, :, :, None] * decay * dtc[:, None, :, :]
+    y_intra = torch.einsum("bijh,bjhp->bihp", M.to(dt_), xc)
+    # inter: [B,Q,H,P] = C[B,Q,N] . h[B,H,P,N] scaled by exp(cs)[B,Q,H]
+    y_inter = torch.einsum("bin,bhpn->bihp", Cc.to(ct), h)
+    y_inter = y_inter * torch.exp(cs)[:, :, :, None]
+    # state update: h' = h*exp(cs_Q) + sum_j exp(cs_Q - cs_j) dt_j B_j x_j
+    w = torch.exp(cs[:, -1:, :] - cs) * dtc                         # [B,Q,H]
+    dh = torch.einsum("bjh,bjn,bjhp->bhpn", w, Bc.to(ct), xc.to(ct))
+    h = h * torch.exp(cs[:, -1])[:, :, None, None] + dh
+    return h, (y_intra.to(ct) + y_inter).to(dt_)
+
+
+def ssd(xin, Bm, Cm, dt, dA, chunk: int):
+    """The chunked SSD over a whole sequence, from a zero state: y [B, S,
+    H, P] in xin's dtype for xin [B, S, H, P], Bm/Cm [B, S, N] and dt/dA
+    [B, S, H] f32. Chunks of min(chunk, S) rows; the last may be short
+    (the reference pads it with zero rows, which add no term to the rows
+    before them). The plain version of ``csrc/ssd.cu``: the CPU route of
+    ``kernels.ops.ssd``, and what the kernels are held against."""
+    B_, S, H, P = xin.shape
+    Q = min(chunk, S)
+    h = xin.new_zeros((B_, H, P, Bm.shape[-1]), dtype=math_dtype(xin.dtype))
+    ys = []
+    for c0 in range(0, S, Q):
+        c1 = min(S, c0 + Q)
+        h, y = _ssd_chunk(h, xin[:, c0:c1], Bm[:, c0:c1], Cm[:, c0:c1],
+                          dt[:, c0:c1], dA[:, c0:c1], xin.dtype)
+        ys.append(y)
+    return torch.cat(ys, dim=1)

@@ -8,9 +8,12 @@ live at a time. Decode is the O(1) recurrence over conv windows and the
 SSM state, updated in place in the cache (the reference returns a new
 state instead).
 
-The SSD's products are plain torch ops, as they are plain ``jnp`` in the
-reference; the one kernel on this path is ``rmsnorm``: the pre-norm of
-each layer (weight ``[D]``) and the gated norm of the mixer's output
+The reference's SSD is plain ``jnp``; the port's runs through
+``kernels.ops.ssd``: on the card the hand-written kernels of
+``csrc/ssd.cu`` (3 launches a call forward, 4 backward), on the CPU the
+plain version, ``kernels.ref.ssd``, the Python loop over chunks described
+above. The other kernel on this path is ``rmsnorm``: the pre-norm of each
+layer (weight ``[D]``) and the gated norm of the mixer's output
 (``y [B, S, H, P]``, a weight per head ``[H, P]``).
 
 Parameters follow ``models.transformer``: nested dicts of tensors stacked
@@ -30,8 +33,6 @@ from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.spec import TensorSpec as TS, init_flat, init_params
 from repro_torch.models.transformer import _layer_params
-
-NEG_INF = -1e30
 
 
 def mamba_specs(cfg: ModelConfig, n: int, dtype: torch.dtype = torch.float32) -> dict:
@@ -113,46 +114,13 @@ def _finish(p, y, xin, z):
     return torch.einsum("bshp,hpd->bsd", y, p["wo"].to(y.dtype))
 
 
-def _ssd_chunk(h, xc, Bc, Cc, dtc, dAc, dt_):
-    """One chunk of the SSD: (state after it, its output in ``dt_``).
-    h: [B, H, P, N] f32; xc [B, Q, H, P], Bc/Cc [B, Q, N] in ``dt_``;
-    dtc/dAc [B, Q, H] f32. The casts are the reference's: C.B in f32,
-    M rounded to ``dt_`` before its product with x, the inter-chunk term
-    and the state update in f32."""
-    Q = xc.shape[1]
-    cs = torch.cumsum(dAc, dim=1)                                   # [B,Q,H]
-    CB = torch.einsum("bin,bjn->bij", Cc.float(), Bc.float())
-    diff = cs[:, :, None, :] - cs[:, None, :, :]
-    mask = torch.ones((Q, Q), dtype=torch.bool, device=xc.device).tril()
-    decay = torch.exp(torch.where(mask[None, :, :, None], diff, NEG_INF))
-    M = CB[:, :, :, None] * decay * dtc[:, None, :, :]
-    y_intra = torch.einsum("bijh,bjhp->bihp", M.to(dt_), xc)
-    # inter: [B,Q,H,P] = C[B,Q,N] . h[B,H,P,N] scaled by exp(cs)[B,Q,H]
-    y_inter = torch.einsum("bin,bhpn->bihp", Cc.float(), h)
-    y_inter = y_inter * torch.exp(cs)[:, :, :, None]
-    # state update: h' = h*exp(cs_Q) + sum_j exp(cs_Q - cs_j) dt_j B_j x_j
-    w = torch.exp(cs[:, -1:, :] - cs) * dtc                         # [B,Q,H]
-    dh = torch.einsum("bjh,bjn,bjhp->bhpn", w, Bc.float(), xc.float())
-    h = h * torch.exp(cs[:, -1])[:, :, None, None] + dh
-    return h, (y_intra.float() + y_inter).to(dt_)
-
-
 def ssd(xin, Bm, Cm, dt, dA, chunk: int):
-    """The chunked SSD over a whole sequence, from a zero state: y [B, S,
-    H, P] in xin's dtype for xin [B, S, H, P], Bm/Cm [B, S, N] and dt/dA
-    [B, S, H] f32. Chunks of min(chunk, S) rows; the last may be short
-    (the reference pads it with zero rows, which add no term to the rows
-    before them)."""
-    B_, S, H, P = xin.shape
-    Q = min(chunk, S)
-    h = xin.new_zeros((B_, H, P, Bm.shape[-1]), dtype=torch.float32)
-    ys = []
-    for c0 in range(0, S, Q):
-        c1 = min(S, c0 + Q)
-        h, y = _ssd_chunk(h, xin[:, c0:c1], Bm[:, c0:c1], Cm[:, c0:c1],
-                          dt[:, c0:c1], dA[:, c0:c1], xin.dtype)
-        ys.append(y)
-    return torch.cat(ys, dim=1)
+    """The chunked SSD over a whole sequence, from a zero state
+    (``kernels.ref.ssd``): y [B, S, H, P] in xin's dtype for xin [B, S, H,
+    P], Bm/Cm [B, S, N] and dt/dA [B, S, H] f32. ``kernels.ops.ssd``
+    routes it: the CUDA kernels on the card, the plain version on the
+    CPU."""
+    return ops.ssd(xin, Bm, Cm, dt, dA, chunk)
 
 
 def _ssd_on_shards(xin, Bm, Cm, dt, dA, chunk: int):

@@ -173,7 +173,8 @@ def test_dp_first_step_exchange_and_no_launches_on_the_cpu(runs, alg):
         assert r["transport"] == "gloo"
         assert r["exchange"][alg]["max_rel_err_vs_psum"] <= TOL
         assert r["algorithms"][alg]["launches"] == {
-            "rmsnorm": 0, "swa_attention": 0, "fused_sgd_update": 0}
+            "rmsnorm": 0, "swa_attention": 0, "fused_sgd_update": 0, "ssd": 0,
+            "ssd_backward": 0}
         assert len(r["algorithms"][alg]["losses"]) == RUN.steps
         assert len(r["algorithms"][alg]["exchange_ms"]) == RUN.steps
 

@@ -284,7 +284,8 @@ def test_dprun_lm_ranks_hold_one_set_of_parameters(runs, alg):
     a = summary["algorithms"][alg]
     assert a["max_rel_err_vs_psum"] <= DP_TOL
     assert a["launches_per_rank_step"] == [
-        {"rmsnorm": 0, "swa_attention": 0, "fused_sgd_update": 0}] * RUN.world
+        {"rmsnorm": 0, "swa_attention": 0, "fused_sgd_update": 0, "ssd": 0,
+         "ssd_backward": 0}] * RUN.world
     if alg != "psum":
         assert a["ranks_bit_identical"]
     upd = _updates(runs, alg)

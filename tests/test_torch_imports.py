@@ -333,7 +333,7 @@ def test_no_kernel_launches_on_the_cpu():
         params, {"tokens": np.zeros((2, 40), np.int32)})
     assert logits.shape == (2, 40, cfg.vocab_size)
     assert ops.launch_counts() == {"rmsnorm": 0, "swa_attention": 0,
-                                   "fused_sgd_update": 0}
+                                   "fused_sgd_update": 0, "ssd": 0, "ssd_backward": 0}
 
 
 def test_no_kernel_launches_in_a_cpu_training_segment(tmp_path):
@@ -352,4 +352,4 @@ def test_no_kernel_launches_in_a_cpu_training_segment(tmp_path):
     r = tr.train_segment(w=2, n_steps=3, resume=False, log_every=1)
     assert len(r.losses) == 3 and all(np.isfinite(l) for _, _, l in r.losses)
     assert ops.launch_counts() == {"rmsnorm": 0, "swa_attention": 0,
-                                   "fused_sgd_update": 0}
+                                   "fused_sgd_update": 0, "ssd": 0, "ssd_backward": 0}

@@ -213,7 +213,8 @@ def test_one_train_step_opens_each_span_as_often_as_it_does_the_work(arch):
                 assert by_id[s["parent"]]["name"] == parent
     assert snap["counters"] == {"train.microbatches": 2,
                                 "train.tokens": batch["tokens"].size}
-    assert snap["launches"] == {"rmsnorm": 0, "swa_attention": 0, "fused_sgd_update": 0}
+    assert snap["launches"] == {"rmsnorm": 0, "swa_attention": 0, "fused_sgd_update": 0,
+                                "ssd": 0, "ssd_backward": 0}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
