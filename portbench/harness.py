@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from portbench import compare, costs, weights
+from portbench.reference import _common
 from portbench.tokens import TokenStream
 
 HERE = Path(__file__).resolve().parent
@@ -198,10 +199,8 @@ class Program:
             self.rows //= 2
             k = math.gcd(k, self.rows)
         exchange = tr["grad_exchange"] if world > 1 and fault != "no_exchange" else None
-        self.exchange_ms = [] if trace and exchange else None
         self.step = make_train_step(self.model, opt, grad_exchange=exchange,
-                                    microbatches=k, device=device,
-                                    exchange_ms=self.exchange_ms)
+                                    microbatches=k, device=device)
 
     def init_state(self, seed: int) -> dict:
         from repro_torch.models.spec import flatten, views
@@ -237,7 +236,7 @@ def checked_steps(prog: Program, state, feed: Feed, seed: int, hp: dict, n: int)
     segment's norm, and how many rows of the leaves it reaches) and each
     segment's change after the n steps. Returns (state, readings,
     seconds of the last step, synchronised)."""
-    segs = weights.segments(prog.layout, prog.cell.model["n_layers"])
+    segs = _common.segments(family_module(prog.cell), prog.cell.model, prog.layout)
     losses, grad_norms, last = [], None, 0.0
     for i in range(n):
         _sync(prog.device)
@@ -258,8 +257,6 @@ def checked_steps(prog: Program, state, feed: Feed, seed: int, hp: dict, n: int)
 
 def reference_readings(cell: Cell, seed: int, feed: Feed, device,
                        master=torch.float32) -> dict:
-    from portbench.reference import _common
-
     tr = cell.traffic
     steps = [feed.micro(i) for i in range(tr["checked_steps"])]
     return _common.train_readings(family_module(cell), cell.model,
@@ -324,8 +321,6 @@ def _run(rank: int, world: int, job: dict, device) -> dict:
         dist.all_reduce(t, op=dist.ReduceOp.MAX)
         n = int(t.item())
     first = tr["checked_steps"]
-    if prog.exchange_ms is not None:
-        prog.exchange_ms.clear()
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     out = {"rank": rank, "steps": n}

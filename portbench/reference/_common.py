@@ -2,6 +2,13 @@
 (gradient accumulation over microbatches, the mean over ranks, AdamW) and
 the readings compared with the program's.
 
+A family module (``reference/<family>.py``) gives ``layout(m)`` and, for a
+decoder of one stack of like layers under ``layers/``, ``layer(p, x, m)``:
+``loss_and_grad`` below runs it. A family of other shape gives its own
+``loss_and_grad(P, G, tokens, labels, m)`` (one microbatch's loss, its
+gradient added into G) and ``stacks(m)`` (path prefix to stack depth, as
+``weights.segments`` takes it); the defaults are this module's.
+
 Plain PyTorch in f32 with TF32 off. Each loss and gradient is computed
 layer by layer: a forward pass keeps only each layer's input, then each
 layer is run again under autograd and differentiated alone, so that a
@@ -103,6 +110,14 @@ def loss_and_grad(family, P: dict, G: dict, tokens, labels, m: dict):
     return loss.detach()
 
 
+def segments(family, m: dict, layout: dict) -> list:
+    """The segments both sides' readings are split into, by the family's
+    stacks of layers: ``family.stacks(m)``, or the one stack ``layers/``
+    of ``n_layers``."""
+    stacks = family.stacks(m) if hasattr(family, "stacks") else {"layers/": m["n_layers"]}
+    return weights.segments(layout, stacks)
+
+
 def adamw(p, g, m, v, t: int, lr: float, hp: dict) -> None:
     """One AdamW step over flat buffers, in place: bias-corrected moments
     and decoupled weight decay, computed in f32 a chunk at a time and kept
@@ -131,7 +146,9 @@ def train_readings(family, model: dict, layout: dict, seed: int, steps: list,
     rows it reaches, and the norm of each segment's change after the last
     step. ``steps[i]``: this rank's microbatches of step i,
     a list of (tokens, labels) on ``device``."""
-    segs = weights.segments(layout, model["n_layers"])
+    segs = segments(family, model, layout)
+    step_loss = getattr(family, "loss_and_grad", None) or (
+        lambda *a: loss_and_grad(family, *a))
     with full_f32():
         p = weights.draw(layout, seed, device).to(master)
         g = torch.zeros(p.numel(), dtype=torch.float32, device=p.device)
@@ -140,7 +157,7 @@ def train_readings(family, model: dict, layout: dict, seed: int, steps: list,
         losses, grad_norms = [], None
         for t, micro in enumerate(steps, start=1):
             g.zero_()
-            loss = sum(loss_and_grad(family, P, G, tok, lab, model) for tok, lab in micro)
+            loss = sum(step_loss(P, G, tok, lab, model) for tok, lab in micro)
             g.div_(len(micro))
             if group is not None or dist.is_initialized():
                 dist.all_reduce(g, group=group)

@@ -1,6 +1,12 @@
 """Smoke-size cells of the benchmark for the CPU tests: the configured
 families cut to 2 layers and small widths, the traffic cut to short
-sequences, with limits set for this size."""
+sequences, with limits set for this size.
+
+Each family's cut is a file, ``smoke/<family>.json``: ``model``, the
+overrides of the configuration's model (or, for a family that no cell of
+``BENCHMARK.json`` runs yet, its whole model and a ``traffic`` of the
+benchmark to run it under); ``limits``, the comparison's limits at this
+size; ``why``, the readings they were set from."""
 from __future__ import annotations
 
 import copy
@@ -14,29 +20,40 @@ if str(ROOT / "src") not in sys.path:  # the program under test
     sys.path.insert(0, str(ROOT / "src"))
 
 from portbench import harness  # noqa: E402
-SMALL = {"dense": dict(n_layers=2, d_model=128, n_heads=4, n_kv_heads=2, d_head=32,
-                       d_ff=256, vocab_size=512),
-         "ssm": dict(n_layers=2, d_model=128, vocab_size=512, ssm_state=16,
-                     ssm_headdim=16, ssm_chunk=16)}
-# set from six seeds of the sound smoke runs on the CPU (grad_gap: qwen
-# 1.1e-3-4.0e-3, mamba2 6.1e-3-2.1e-2; change_gap: 3.6e-3-6.8e-3 and
-# 3.1e-3-1.25e-2) and the faults' and the control's readings (half a batch:
-# grad_gap 0.44-0.53 and 0.48-0.73; bf16 masters: change_gap 0.09-0.10 and
-# 1.35-1.73); grad_rows_gap is exact: 0 sound, 22 rows with half a batch
-LIMITS = {"dense": {"limits": {"grad_rows_gap": 0, "grad_gap": 0.05, "change_gap": 0.03}},
-          "ssm": {"limits": {"grad_rows_gap": 0, "grad_gap": 0.1, "change_gap": 0.05}}}
+
+SMOKE = Path(__file__).resolve().parent / "smoke"
 
 
 def bench() -> dict:
     return json.loads((ROOT / "BENCHMARK.json").read_text())
 
 
-def cell(name: str, seq: int = 32) -> harness.Cell:
-    c = copy.deepcopy(harness.load_cell(bench(), name, ROOT))
-    c.config["model"].update(SMALL[c.family])
+def smoke(family: str) -> dict:
+    return json.loads((SMOKE / f"{family}.json").read_text())
+
+
+def _cut(c: harness.Cell, seq: int) -> harness.Cell:
+    cut = smoke(c.family)
+    c.config["model"].update(cut["model"])
     c.traffic.update(seq=seq, pool_steps=8)
-    c.limits = LIMITS[c.family]
+    c.limits = {"limits": cut["limits"]}
     return c
+
+
+def cell(name: str, seq: int = 32) -> harness.Cell:
+    """The cell ``name`` of BENCHMARK.json at its family's smoke size."""
+    return _cut(copy.deepcopy(harness.load_cell(bench(), name, ROOT)), seq)
+
+
+def family_cell(family: str, seq: int = 32) -> harness.Cell:
+    """A one-card cell of ``family``, which no cell of BENCHMARK.json runs:
+    its smoke file's model under its smoke file's traffic."""
+    cut, b = smoke(family), bench()
+    traffic = json.loads((ROOT / "portbench" / "traffic" / f"{cut['traffic']}.json")
+                         .read_text())
+    c = harness.Cell(f"{family}.smoke", 1, {"model": {"family": family}}, traffic, {},
+                     [m for m in b["end_to_end"] if "workloads" not in m], [])
+    return _cut(c, seq)
 
 
 def four_ranks(c: harness.Cell) -> harness.Cell:

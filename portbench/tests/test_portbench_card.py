@@ -1,5 +1,5 @@
-"""On the card: one short run of each one-card cell through ``run.py``, as
-the benchmark's check runs it. Skips without a card.
+"""On the card: one short run of each cell through ``run.py``, as the
+benchmark's check runs it. Skips without as many cards as the cell asks.
 
     python3 -m pytest -q -m cuda portbench/tests/test_portbench_card.py
 """
@@ -14,10 +14,11 @@ from portbench.tests.portbench_smoke import ROOT
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cell", ["qwen2.5-3b.train", "mamba2-780m.train"])
-def test_cell_runs_correct_on_the_card(cell):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the benchmark does not run on the CPU")
+@pytest.mark.parametrize("cell,cards", [("qwen2.5-3b.train", 1), ("mamba2-780m.train", 1),
+                                        ("qwen2.5-3b.dp4-ring", 4)])
+def test_cell_runs_correct_on_the_card(cell, cards):
+    if not torch.cuda.is_available() or torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA card(s): the benchmark does not run on the CPU")
     run = subprocess.run([sys.executable, "portbench/run.py", "--workload", cell,
                           "--seed", str(2**33 + 1), "--seconds", "5", "--trace", "0"],
                          cwd=ROOT, capture_output=True, text=True, timeout=1200)

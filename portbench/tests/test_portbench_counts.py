@@ -77,6 +77,15 @@ def test_device_readers_by_hand():
     assert reader("swa_attention_roofline").read(traces) is None
 
 
+def test_exchange_reader_by_hand():
+    """The NCCL group's time a traced step, mean over ranks; silent where
+    no rank traced an NCCL kernel (one card)."""
+    a, b = {"groups_ms_per_step": {"exchange": 110.0, "gemm": 5.0}}, {
+        "groups_ms_per_step": {"exchange": 120.0}}
+    assert reader("exchange_ms").read([a, b]) == 115.0
+    assert reader("exchange_ms").read([{"groups_ms_per_step": {"gemm": 5.0}}]) is None
+
+
 def test_recording_patches_what_the_readers_declare(monkeypatch):
     """The traced window records each call of a declared entry point, the
     kernel's launch counter keeps counting on the original, and the entry

@@ -43,7 +43,8 @@ def test_each_cell_finds_its_files_by_name(name):
     assert cell.chips == cell.traffic["ranks"]
     assert harness.flops_per_token(cell) > 0
     fam = harness.family_module(cell)
-    assert fam.layout(cell.model) and callable(fam.layer)
+    assert fam.layout(cell.model)
+    assert callable(getattr(fam, "loss_and_grad", None) or fam.layer)
     assert set(cell.limits["limits"]) <= set(harness.compare.NUMBERS)
     assert {m["name"] for m in cell.end_to_end} >= {"setup_s"} and len(cell.end_to_end) > 1
     assert cell.per_layer

@@ -56,13 +56,14 @@ def test_control_in_bf16_masters_fails(name):
     ref = harness.reference_readings(cell, seed, feed, dev)
     low = harness.reference_readings(cell, seed, feed, dev, master=torch.bfloat16)
     g = harness.compare.gaps(low, ref)
-    assert g["change_gap"] > S.LIMITS[cell.family]["limits"]["change_gap"], g
+    assert g["change_gap"] > cell.limits["limits"]["change_gap"], g
 
 
-@pytest.mark.parametrize("fault", [None, "no_exchange"])
+@pytest.mark.parametrize("fault", [None, "no_exchange", "unchanged", "half_batch"])
 def test_four_ranks_over_gloo(fault):
     """A four-card cell's path on four CPU ranks: sound it is correct; with
-    the ranks' exchange left out it is not."""
+    the ranks' exchange left out, the state unchanged or half of each
+    rank's rows left out it is not."""
     r = S.run(S.four_ranks(S.cell("qwen2.5-3b.train")), fault=fault)
     assert r["correct"] is (fault is None), r["checks"]
     assert r["device"]["count"] == 4

@@ -106,20 +106,22 @@ def traced_window(prog, state, feed, first: int, n: int, k: int, world: int):
         losses.append(loss)
     harness._barrier(dev, world)
     loop_s = time.perf_counter() - t_loop
-    exchange_ms = list(prog.exchange_ms or [])
     rank = torch.distributed.get_rank() if world > 1 else 0
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
     with recording(kernel_readers(prog.cell)) as calls:
         device_only = profile(activities=[ProfilerActivity.CUDA if dev.type == "cuda"
                                           else ProfilerActivity.CPU])
-        device_only.start()
+        # the ranks' barriers stay outside the device trace, where their
+        # NCCL kernels would count as the exchange's
         harness._barrier(dev, world)
+        device_only.start()
         t_prof = time.perf_counter()
         for i in range(first + n, first + n + k):
             state, _ = prog(state, feed, i)
-        harness._barrier(dev, world)
+        harness._sync(dev)
         window_s = time.perf_counter() - t_prof
         device_only.stop()
+        harness._barrier(dev, world)
         calls = {name: list(v) for name, v in calls.items()}
         spans = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         spans.start()
@@ -130,7 +132,7 @@ def traced_window(prog, state, feed, first: int, n: int, k: int, world: int):
     device_only.export_chrome_trace(str(TRACE_DIR / f"{prog.cell.name}.rank{rank}.json"))
     summary = summarize(device_only, k, window_s)
     summary.update(span_summary(spans), step_ms=step_ms, loop_s=loop_s,
-                   exchange_ms=exchange_ms, kernel_calls=calls)
+                   kernel_calls=calls)
     return state, losses, summary, start_wall
 
 

@@ -51,17 +51,21 @@ def total(layout: dict) -> int:
     return sum(math.prod(leaf.shape) for leaf in layout.values())
 
 
-def segments(layout: dict, n_layers: int) -> list[tuple[str, int, int]]:
-    """The leaves the comparison reads, in flat order: a leaf stacked over
-    the layers (its path under ``layers/``, its first dim ``n_layers``)
-    gives one segment a layer, ``path[i]``; any other leaf one segment."""
+def segments(layout: dict, stacks: dict) -> list[tuple[str, int, int]]:
+    """The leaves the comparison reads, in flat order. ``stacks`` maps a
+    path prefix to a stack's depth: a leaf stacked over it (its path under
+    the prefix, its first dim the depth) gives one segment a layer,
+    ``path[i]``; any other leaf one segment. A decoder of one stack has
+    ``{"layers/": n_layers}``."""
     out = []
     for path, a, b in offsets(layout):
         shape = layout[path].shape
-        if path.startswith("layers/") and shape and shape[0] == n_layers:
-            per = (b - a) // n_layers
+        depth = next((n for prefix, n in stacks.items()
+                      if path.startswith(prefix) and shape and shape[0] == n), None)
+        if depth is not None:
+            per = (b - a) // depth
             out += [(f"{path}[{i}]", a + i * per, a + (i + 1) * per)
-                    for i in range(n_layers)]
+                    for i in range(depth)]
         else:
             out.append((path, a, b))
     return out
